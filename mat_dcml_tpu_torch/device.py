@@ -1,0 +1,21 @@
+"""Where the port's entry points run."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``cuda`` unless the caller names another device; raises when CUDA is
+    asked for (or defaulted to) and absent.  Never falls back to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run on the CPU"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"the port runs on cuda or cpu, got {dev}")
+    if dev.type == "cuda" and dev.index is None:
+        # name the card, as a tensor's .device does, so devices compare equal
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev

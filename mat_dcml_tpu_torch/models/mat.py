@@ -1,0 +1,218 @@
+"""The Multi-Agent Transformer as ``nn.Module``s.
+
+Port of ``mat_dcml_tpu/models/mat.py``.  The encoder doubles as the critic:
+its head emits per-agent values off the trunk that produces ``obs_rep``.  The
+decoder maps previous agents' actions and ``obs_rep`` to the current agent's
+logits.
+
+Action types: ``discrete`` (one categorical head per agent);
+``semi_discrete``, the DCML mode (agents ``[0, n_agent + semi_index)`` are
+categorical, the tail agents Gaussian with ``std = sigmoid(log_std) * 0.5``);
+``continuous`` and ``available_continuous``, whose sampling is not ported yet.
+
+The trunk runs in f32 in this slice; the heads always do.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from mat_dcml_tpu_torch.device import resolve_device
+from mat_dcml_tpu_torch.models.modules import (
+    GAIN_ACT,
+    DecodeBlock,
+    Dense,
+    EncodeBlock,
+    gelu,
+    init_packed_cache,
+    layer_norm,
+)
+
+DISCRETE = "discrete"
+SEMI_DISCRETE = "semi_discrete"
+CONTINUOUS = "continuous"
+AVAILABLE_CONTINUOUS = "available_continuous"
+ACTION_TYPES = (DISCRETE, SEMI_DISCRETE, CONTINUOUS, AVAILABLE_CONTINUOUS)
+
+NORMAL_STD = 0.5
+
+
+@dataclasses.dataclass(frozen=True)
+class MATConfig:
+    n_agent: int
+    obs_dim: int
+    state_dim: int
+    action_dim: int
+    n_block: int = 2
+    n_embd: int = 64
+    n_head: int = 2
+    action_type: str = DISCRETE
+    semi_index: int = -1          # number of trailing continuous agents, negated
+
+    def __post_init__(self):
+        if self.action_type not in ACTION_TYPES:
+            raise ValueError(f"action_type must be one of {ACTION_TYPES}, got {self.action_type!r}")
+
+    @property
+    def action_input_dim(self) -> int:
+        # Discrete-style decoders consume one-hot + start-token slot.
+        if self.action_type in (DISCRETE, SEMI_DISCRETE, AVAILABLE_CONTINUOUS):
+            return self.action_dim + 1
+        return self.action_dim
+
+    @property
+    def n_discrete_agents(self) -> int:
+        """Agents with categorical heads in semi-discrete mode."""
+        return self.n_agent + self.semi_index
+
+
+class ObsEncoder(nn.Module):
+    """LayerNorm -> Linear -> GELU embed."""
+
+    def __init__(self, in_dim: int, n_embd: int):
+        super().__init__()
+        self.LayerNorm_0 = layer_norm(in_dim)
+        self.Dense_0 = Dense(in_dim, n_embd, gain=GAIN_ACT)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return gelu(self.Dense_0(self.LayerNorm_0(x)))
+
+
+class Head(nn.Module):
+    """Linear-GELU-LN-Linear, always in f32: logits and values feed
+    distributions and losses."""
+
+    def __init__(self, n_embd: int, out_dim: int):
+        super().__init__()
+        self.Dense_0 = Dense(n_embd, n_embd, gain=GAIN_ACT)
+        self.LayerNorm_0 = layer_norm(n_embd)
+        self.Dense_1 = Dense(n_embd, out_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        return self.Dense_1(self.LayerNorm_0(gelu(self.Dense_0(x))))
+
+
+class Encoder(nn.Module):
+    """Value head plus the shared representation."""
+
+    def __init__(self, cfg: MATConfig):
+        super().__init__()
+        self.obs_encoder = ObsEncoder(cfg.obs_dim, cfg.n_embd)
+        self.ln = layer_norm(cfg.n_embd)
+        self.blocks = nn.ModuleList(EncodeBlock(cfg.n_embd, cfg.n_head) for _ in range(cfg.n_block))
+        self.head = Head(cfg.n_embd, 1)
+
+    def forward(self, state: torch.Tensor, obs: torch.Tensor):
+        del state   # the DCML recipe encodes obs (encode_state=False)
+        rep = self.ln(self.obs_encoder(obs))
+        for blk in self.blocks:
+            rep = blk(rep)
+        return self.head(rep), rep
+
+
+class Decoder(nn.Module):
+    """Action-conditioned decoder."""
+
+    def __init__(self, cfg: MATConfig):
+        super().__init__()
+        self.cfg = cfg
+        if cfg.action_type != DISCRETE:
+            self.log_std = nn.Parameter(torch.ones(cfg.action_dim))
+        if cfg.action_type in (DISCRETE, SEMI_DISCRETE):
+            self.action_encoder_nobias = Dense(cfg.action_input_dim, cfg.n_embd, gain=GAIN_ACT, bias=False)
+        else:
+            self.action_encoder_bias = Dense(cfg.action_input_dim, cfg.n_embd, gain=GAIN_ACT)
+        self.ln = layer_norm(cfg.n_embd)
+        self.blocks = nn.ModuleList(DecodeBlock(cfg.n_embd, cfg.n_head) for _ in range(cfg.n_block))
+        self.head = Head(cfg.n_embd, cfg.action_dim)
+
+    def _embed_action(self, shifted_action: torch.Tensor) -> torch.Tensor:
+        if self.cfg.action_type in (DISCRETE, SEMI_DISCRETE):
+            return gelu(self.action_encoder_nobias(shifted_action))
+        return gelu(self.action_encoder_bias(shifted_action))
+
+    def forward(self, shifted_action: torch.Tensor, obs_rep: torch.Tensor) -> torch.Tensor:
+        """Teacher-forced pass -> ``(B, n_agent, action_dim)`` logits."""
+        x = self.ln(self._embed_action(shifted_action))
+        for blk in self.blocks:
+            x = blk(x, obs_rep)
+        return self.head(x)
+
+    def decode_queries(self, obs_rep: torch.Tensor) -> torch.Tensor:
+        """Cross-attention queries of every block for all A positions,
+        ``(n_block, B, H, A, Dh)``: ``obs_rep`` is known before the decode
+        loop starts, so these come out of it."""
+        return torch.stack([blk.attn2.project_q_heads(obs_rep) for blk in self.blocks])
+
+    def decode_step_cached(self, shifted_action_i: torch.Tensor, rep_i: torch.Tensor,
+                           q2_i: torch.Tensor, kv, i: int, valid: torch.Tensor) -> torch.Tensor:
+        """One decode position against the packed head-split cache, written in
+        place.
+
+        Args:
+          shifted_action_i: ``(B, 1, action_input_dim)`` previous agent's
+            one-hot action, or the start token at i = 0.
+          rep_i: ``(B, 1, n_embd)`` encoder rep at position i.
+          q2_i: ``(n_block, B, H, 1, Dh)`` cross-attention queries at i.
+          kv: ``(k_buf, v_buf)`` packed cache pair.
+          i: agent index.
+          valid: ``(A,)`` bool, True at positions ``<= i``.
+
+        Returns:
+          ``(B, 1, action_dim)`` logits.
+        """
+        x = self.ln(self._embed_action(shifted_action_i))
+        for bi, blk in enumerate(self.blocks):
+            x = blk.decode_step_packed(x, rep_i, q2_i[bi], kv, 2 * bi, i, valid)
+        return self.head(x)
+
+    def std(self) -> torch.Tensor:
+        return torch.sigmoid(self.log_std) * NORMAL_STD
+
+
+class MultiAgentTransformer(nn.Module):
+    """Encoder and decoder with the methods the decode paths call.
+
+    Built on ``device`` (default ``cuda``; raises when CUDA is absent).
+    Weights are initialised on the CPU from ``generator``, then moved, so one
+    seed gives the same weights on every device.
+    """
+
+    def __init__(self, cfg: MATConfig, device=None, generator: torch.Generator | None = None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.encoder = Encoder(cfg)
+        self.decoder = Decoder(cfg)
+        for mod in self.modules():
+            if isinstance(mod, Dense):
+                mod.reset_parameters(generator)
+        self.to(dev)
+
+    @property
+    def device(self) -> torch.device:
+        return self.decoder.head.Dense_1.weight.device
+
+    def forward(self, state: torch.Tensor, obs: torch.Tensor, shifted_action: torch.Tensor):
+        v_loc, rep = self.encoder(state, obs)
+        return v_loc, rep, self.decoder(shifted_action, rep)
+
+    def encode(self, state: torch.Tensor, obs: torch.Tensor):
+        return self.encoder(state, obs)
+
+    def decode_queries(self, obs_rep: torch.Tensor) -> torch.Tensor:
+        return self.decoder.decode_queries(obs_rep)
+
+    def decode_step_cached(self, shifted_action_i, rep_i, q2_i, kv, i, valid):
+        return self.decoder.decode_step_cached(shifted_action_i, rep_i, q2_i, kv, i, valid)
+
+    def action_std(self) -> torch.Tensor:
+        return self.decoder.std()
+
+    def fresh_packed_cache(self, batch: int):
+        c = self.cfg
+        return init_packed_cache(c.n_block, batch, c.n_agent, c.n_embd, c.n_head, device=self.device)

@@ -1,0 +1,111 @@
+"""Shared set-up for the tests that hold the PyTorch port against the JAX
+package on the CPU: one small semi-discrete DCML-shaped MAT, its weights on
+both sides, numpy inputs from a seed, and the JAX key chain's sampling noise.
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from mat_dcml_tpu.models.mat import MATConfig as JaxMATConfig
+from mat_dcml_tpu.models.mat import MultiAgentTransformer as JaxMAT
+from mat_dcml_tpu_torch.bridge import params_from_jax
+from mat_dcml_tpu_torch.models.mat import MATConfig, MultiAgentTransformer
+
+# DCML's obs / state / action widths, cut to 11 agents and n_embd 16
+SMALL = dict(n_agent=11, obs_dim=7, state_dim=102, action_dim=2, n_block=2,
+             n_embd=16, n_head=2, action_type="semi_discrete", semi_index=-1)
+TINY = dict(SMALL, n_agent=5, n_embd=8)
+
+
+def configs(shape=SMALL):
+    return JaxMATConfig(**shape), MATConfig(**shape)
+
+
+def jax_params(jcfg, seed=0):
+    """JAX-initialised tree with every leaf redrawn from numpy at O(1)
+    scale: the reference init's 0.01-gain heads give logits near 0, which
+    would let a wrong port pass a tolerance check."""
+    A = jcfg.n_agent
+    init = JaxMAT(jcfg).init(
+        jax.random.key(seed),
+        jnp.zeros((1, A, jcfg.state_dim)), jnp.zeros((1, A, jcfg.obs_dim)),
+        jnp.zeros((1, A, jcfg.action_input_dim)),
+    )
+    rng = np.random.default_rng(seed)
+
+    def redraw(path, leaf):
+        name = str(path[-1].key)
+        shape = leaf.shape
+        if name == "kernel":
+            arr = rng.normal(size=shape) / np.sqrt(shape[0])
+        elif name == "scale":
+            arr = 1.0 + 0.1 * rng.normal(size=shape)
+        else:   # bias, log_std
+            arr = 0.1 * rng.normal(size=shape)
+        return np.asarray(arr, np.float32)
+
+    return jax.tree_util.tree_map_with_path(redraw, jax.device_get(init))
+
+
+def torch_model(tcfg, params):
+    model = MultiAgentTransformer(tcfg, device="cpu")
+    model.load_state_dict(params_from_jax(params))
+    return model.eval()
+
+
+def inputs(cfg, batch, seed=1):
+    rng = np.random.default_rng(seed)
+    state = rng.normal(size=(batch, cfg.n_agent, cfg.state_dim)).astype(np.float32)
+    obs = rng.normal(size=(batch, cfg.n_agent, cfg.obs_dim)).astype(np.float32)
+    avail = (rng.uniform(size=(batch, cfg.n_agent, cfg.action_dim)) > 0.3).astype(np.float32)
+    avail[..., 0] = 1.0   # keep one action available
+    return state, obs, avail
+
+
+def replay_noise(key, batch, cfg):
+    """The noise JAX's cached decode draws from ``key``: per position
+    ``key, k_d, k_c = split(key, 3)``; the categorical draw is
+    ``argmax(logits + gumbel(k_d))`` and the Gaussian tail reads
+    ``normal(k_c)`` for agents ``>= n_discrete_agents``."""
+    A, adim, nd = cfg.n_agent, cfg.action_dim, cfg.n_discrete_agents
+    gumbel = np.zeros((batch, A, adim), np.float32)
+    tail = np.zeros((A, batch, adim), np.float32)
+    for i in range(A):
+        key, k_d, k_c = jax.random.split(key, 3)
+        gumbel[:, i] = np.asarray(jax.random.gumbel(k_d, (batch, adim), jnp.float32))
+        if i >= nd:
+            tail[i] = np.asarray(jax.random.normal(k_c, (batch, adim), jnp.float32))
+    return gumbel, tail
+
+
+def assert_decodes_agree(act, logp, ref_act, ref_logp, ref_logits, nd, atol,
+                         margin=1e-5):
+    """The port's decode against the reference's, row by row.
+
+    Actions must be equal and log-probs within ``atol``, except that a row
+    may diverge from the first position where its actions differ, and only
+    if the reference's top-2 logit margin there (``ref_logits (B, A, adim)``,
+    noise included, availability applied) is below ``margin``: a near-tie
+    that float summation order may break either way.
+    """
+    act, logp = np.asarray(act)[..., 0], np.asarray(logp)[..., 0]
+    ref_act, ref_logp = np.asarray(ref_act)[..., 0], np.asarray(ref_logp)[..., 0]
+    for b in range(act.shape[0]):
+        diff = np.flatnonzero(act[b, :nd] != ref_act[b, :nd])
+        end = act.shape[1] if diff.size == 0 else int(diff[0])
+        if diff.size:
+            top2 = np.sort(np.asarray(ref_logits)[b, end])[-2:]
+            assert top2[1] - top2[0] < margin, (
+                f"row {b}: action differs at position {end} with top-2 margin "
+                f"{top2[1] - top2[0]:.3g} >= {margin}")
+        else:
+            np.testing.assert_allclose(act[b, nd:], ref_act[b, nd:], atol=atol)
+        np.testing.assert_allclose(logp[b, :end], ref_logp[b, :end], atol=atol)
+
+
+def torch_in(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
