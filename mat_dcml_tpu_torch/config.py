@@ -1,0 +1,67 @@
+"""Run configuration and the trainer's strict command line.
+
+Port of ``mat_dcml_tpu/config.py`` for the fields the port's training path
+reads.  Unknown flags are an error, as in the JAX package: a flag of the JAX
+CLI that this port does not support yet is unknown here, never silently
+ignored.  ``--device`` (default ``cuda``) is the port's own.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+from mat_dcml_tpu_torch.training.ppo import PPOConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """Run-level settings; defaults are the DCML recipe's."""
+
+    algorithm_name: str = "mat"
+    env_name: str = "DCML"
+    scenario: str = "AS"
+    experiment_name: str = "check"
+    seed: int = 1
+    n_rollout_threads: int = 8        # env-batch size E
+    num_env_steps: int = 1_000_000
+    episode_length: int = 50
+    log_interval: int = 5
+    run_dir: str = "results"
+    n_block: int = 2
+    n_embd: int = 64
+    n_head: int = 2
+    model_dtype: str = "float32"
+    decode_mode: str = "cached"
+    device: str = "cuda"
+
+    @property
+    def episodes(self) -> int:
+        return int(self.num_env_steps) // self.episode_length // self.n_rollout_threads
+
+
+def _parse_bool(s: str) -> bool:
+    low = s.lower()
+    if low in ("1", "true", "yes", "on"):
+        return True
+    if low in ("0", "false", "no", "off"):
+        return False
+    raise argparse.ArgumentTypeError(f"expected a boolean, got {s!r}")
+
+
+def _add_dataclass_args(parser: argparse.ArgumentParser, dc) -> None:
+    for f in dataclasses.fields(dc):
+        default = getattr(dc, f.name)
+        kind = _parse_bool if isinstance(default, bool) else type(default)
+        parser.add_argument("--" + f.name, type=kind, default=default)
+
+
+def parse_cli(argv=None) -> tuple[RunConfig, PPOConfig]:
+    """Strict CLI over :class:`RunConfig` and :class:`PPOConfig`."""
+    run, ppo = RunConfig(), PPOConfig()
+    parser = argparse.ArgumentParser(description="mat_dcml_tpu_torch trainer", allow_abbrev=False)
+    _add_dataclass_args(parser, run)
+    _add_dataclass_args(parser, ppo)
+    ns = parser.parse_args(argv)  # strict: unknown flags raise
+    return (RunConfig(**{f.name: getattr(ns, f.name) for f in dataclasses.fields(RunConfig)}),
+            PPOConfig(**{f.name: getattr(ns, f.name) for f in dataclasses.fields(PPOConfig)}))

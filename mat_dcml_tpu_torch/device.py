@@ -19,3 +19,9 @@ def resolve_device(device=None) -> torch.device:
         # name the card, as a tensor's .device does, so devices compare equal
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the work queued on ``device`` (nothing to wait for on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

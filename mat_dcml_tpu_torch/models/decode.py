@@ -1,7 +1,8 @@
-"""Autoregressive action decode for MAT: the serving entry and the cached decode.
+"""Action decode for MAT: the serving entry, the cached decode, and the
+teacher-forced evaluation of the PPO update.
 
-Port of ``mat_dcml_tpu/models/decode.py`` for ``mode="cached"``, the serving
-and rollout default.  The JAX ``lax.scan`` over agents becomes a Python loop
+Port of ``mat_dcml_tpu/models/decode.py`` for ``mode="cached"`` (the serving
+and rollout default) and ``parallel_act``.  The JAX ``lax.scan`` over agents becomes a Python loop
 over positions; the packed K/V cache is written in place.  Sampling noise is
 an input (Gumbel for categorical draws, standard normals for the Gaussian
 tail), drawn from the caller's ``torch.Generator`` when not given, so a test
@@ -175,3 +176,62 @@ def cached_decode(
         acts.append(act)
         logps.append(logp)
     return DecodeResult(torch.stack(acts, dim=1), torch.stack(logps, dim=1))
+
+
+# ---------------------------------------------------------------------------
+# Teacher-forced parallel evaluation
+# ---------------------------------------------------------------------------
+
+def parallel_act(
+    model: MultiAgentTransformer,
+    obs_rep: torch.Tensor,
+    action: torch.Tensor,
+    available_actions: Optional[torch.Tensor],
+):
+    """Teacher-forced log-probs and entropies in one decoder pass
+    (``mat_dcml_tpu/models/decode.py::parallel_act``; ``transformer_act.py``
+    ``discrete_parallel_act`` and ``semi_discrete_parallel_act``).
+
+    ``obs_rep (B, A, D)``, ``action (B, A, 1)``.  Returns ``(log_prob,
+    entropy)``, each ``(B, A, 1)``.
+    """
+    cfg = model.cfg
+    B, A, adim = obs_rep.shape[0], cfg.n_agent, cfg.action_dim
+    if cfg.action_type == DISCRETE:
+        idx = action[..., 0].long()
+        onehot = torch.nn.functional.one_hot(idx, adim).float()
+        logits = model.decoder(_shift_with_start(onehot, B, A, adim), obs_rep)
+        logits = D.mask_logits(logits, available_actions)
+        return (D.categorical_log_prob(logits, idx)[..., None],
+                D.categorical_entropy(logits)[..., None])
+    if cfg.action_type != SEMI_DISCRETE:
+        raise NotImplementedError(
+            f"parallel_act for action_type {cfg.action_type!r} is not ported yet "
+            "(ROADMAP.md queue 1, item 4)"
+        )
+    nd = cfg.n_discrete_agents
+    idx = action[:, :nd, 0].long()
+    onehot = torch.nn.functional.one_hot(idx, adim).float()
+    cont = action[:, nd:, :].expand(B, A - nd, adim)
+    shifted = _shift_with_start(torch.cat([onehot, cont], dim=1), B, A, adim)
+    logits = model.decoder(shifted, obs_rep)
+    d_logits = logits[:, :nd]
+    if available_actions is not None:
+        d_logits = D.mask_logits(d_logits, available_actions[:, :nd])
+    d_logp = D.categorical_log_prob(d_logits, idx)[..., None]
+    d_ent = D.categorical_entropy(d_logits)[..., None]
+    std = model.action_std()
+    c_mean = logits[:, nd:]
+    c_logp = D.normal_log_prob(c_mean, std, action[:, nd:, :].expand_as(c_mean))
+    c_ent = D.normal_entropy(c_mean, std).expand_as(c_mean)
+    return (torch.cat([d_logp, c_logp[:, :, -1:]], dim=1),
+            torch.cat([d_ent, c_ent[:, :, -1:]], dim=1))
+
+
+def _shift_with_start(action_all: torch.Tensor, B: int, A: int, adim: int) -> torch.Tensor:
+    """Start token, then the actions shifted right by one agent
+    (``transformer_act.py:108-110``)."""
+    shifted = torch.zeros(B, A, adim + 1, device=action_all.device)
+    shifted[:, 0, 0] = 1.0
+    shifted[:, 1:, 1:] = action_all[:, :-1, :]
+    return shifted

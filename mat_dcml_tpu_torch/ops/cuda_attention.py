@@ -1,13 +1,17 @@
-"""Fused masked attention forward: the CUDA kernel's wrapper and its plain twin.
+"""Fused masked attention, forward and backward: the CUDA kernels' wrappers and
+their plain twin.
 
-Port of ``mat_dcml_tpu/ops/pallas_attention.py::fused_masked_attention``
-(forward only; the backward is ROADMAP.md queue 2).  The kernel is
-``csrc/attention_fwd.cu``, built by ``ops/kernel_lib.py`` and called through
-``ctypes``.
+Port of ``mat_dcml_tpu/ops/pallas_attention.py::fused_masked_attention`` and
+its custom VJP.  The kernels are ``csrc/attention_fwd.cu`` and
+``csrc/attention_bwd.cu``, built by ``ops/kernel_lib.py`` and called through
+``ctypes``; :class:`FusedAttention` joins them as one
+``torch.autograd.Function`` whose backward recomputes the probabilities from
+the saved ``q, k, v`` (as the TPU kernel does) instead of saving them.
 
 ``fused_masked_attention`` takes the plain version for a tensor on the CPU
-and the kernel for a tensor on a CUDA device; it never falls back from the
-kernel.  ``launches`` counts kernel launches, and nothing else.
+(autograd runs through it) and the kernels for a tensor on a CUDA device; it
+never falls back from a kernel.  ``launches`` and ``bwd_launches`` count
+kernel launches of the forward and the backward, and nothing else.
 """
 
 from __future__ import annotations
@@ -22,7 +26,9 @@ from mat_dcml_tpu_torch.ops.attention import NEG_INF
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
-_limits: tuple[int, int] | None = None
+bwd_launches = 0
+_limits: dict = {}       # kernel name -> (max Lk, max Dh)
+_smem_limit: dict = {}   # device index -> opt-in shared memory of a block
 
 
 def _scale(dh: int) -> float:
@@ -53,47 +59,51 @@ def attention_plain(
     return torch.matmul(att, v)
 
 
-def _library() -> ctypes.CDLL:
+def attention_bwd_plain(q, k, v, dout, *, causal=False, kv_mask=None):
+    """``(dq, dk, dv)`` by autograd through :func:`attention_plain`: the
+    backward kernel's plain version (the CPU path, and the yardstick on the
+    card)."""
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        out = attention_plain(*leaves, causal=causal, kv_mask=kv_mask)
+        return torch.autograd.grad(out, leaves, dout)
+
+
+def _library(name: str) -> ctypes.CDLL:
     from mat_dcml_tpu_torch.ops import kernel_lib
 
-    lib = kernel_lib.load("attention_fwd")
-    if not getattr(lib, "_mat_typed", False):
-        lib.mat_attention_fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-        lib.mat_attention_fwd.restype = ctypes.c_int   # cudaError_t, an int-sized enum
-        lib.mat_attention_fwd_max_lk.restype = ctypes.c_int
-        lib.mat_attention_fwd_max_dh.restype = ctypes.c_int
-        lib._mat_typed = True
+    lib = kernel_lib.load(name)
+    if getattr(lib, "_mat_typed", False):
+        return lib
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    if name == "attention_fwd":
+        lib.mat_attention_fwd.argtypes = [ptr] * 5 + [i32] * 8 + [ptr]
+        lib.mat_attention_fwd.restype = i32   # cudaError_t, an int-sized enum
+        lib.mat_attention_fwd_max_lk.restype = i32
+        lib.mat_attention_fwd_max_dh.restype = i32
+    else:
+        lib.mat_attention_bwd.argtypes = [ptr] * 8 + [i32] * 8 + [ptr]
+        lib.mat_attention_bwd.restype = i32
+        lib.mat_attention_bwd_max_lk.restype = i32
+        lib.mat_attention_bwd_max_dh.restype = i32
+        lib.mat_attention_bwd_smem_bytes.argtypes = [i32] * 3
+        lib.mat_attention_bwd_smem_bytes.restype = ctypes.c_longlong
+        lib.mat_attention_bwd_smem_limit.restype = ctypes.c_longlong
+    lib._mat_typed = True
     return lib
 
 
-def kernel_limits() -> tuple[int, int]:
-    """``(max Lk, max Dh)`` that the compiled kernel holds (its ``kMaxLk``,
-    ``kMaxDh``), read from the library; building it if need be."""
-    global _limits
-    if _limits is None:
-        lib = _library()
-        _limits = (lib.mat_attention_fwd_max_lk(), lib.mat_attention_fwd_max_dh())
-    return _limits
+def kernel_limits(name: str = "attention_fwd") -> tuple[int, int]:
+    """``(max Lk, max Dh)`` that the compiled kernel ``name`` holds (its
+    ``kMaxLk``, ``kMaxDh``), read from the library; building it if need be."""
+    if name not in _limits:
+        lib = _library(name)
+        _limits[name] = (getattr(lib, f"mat_{name}_max_lk")(), getattr(lib, f"mat_{name}_max_dh")())
+    return _limits[name]
 
 
-def fused_masked_attention(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    *,
-    causal: bool = False,
-    kv_mask: torch.Tensor | None = None,
-) -> torch.Tensor:
-    """``softmax(mask(q k^T / sqrt(Dh))) v`` over ``q (B, H, Lq, Dh)`` and
-    ``k/v (B, H, Lk, Dh)``, with an optional causal tril (Lq == Lk) and an
-    optional boolean ``(Lk,)`` or ``(B, Lk)`` kv mask.  The kernel sees the
-    rows flattened to ``N = B * H`` and reads row n's per-batch mask at
-    ``n // H``, so nothing is repeated per head."""
-    global launches
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, causal=causal, kv_mask=kv_mask)
-    if q.device.type != "cuda":
-        raise ValueError(f"fused_masked_attention runs on cpu or cuda, got {q.device}")
+def _check(q, k, v, causal, kv_mask, name):
+    """Validate a CUDA call; returns ``(mask_mode, mask_ptr)``."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (B, H, L, Dh)")
     B, H, Lq, Dh = q.shape
@@ -108,34 +118,109 @@ def fused_masked_attention(
         raise ValueError("q, k, v must be contiguous")
     if B * H < 1 or Lq < 1 or Lk < 1:
         raise ValueError(f"empty attention: q {tuple(q.shape)}, k {tuple(k.shape)}")
-    max_lk, max_dh = kernel_limits()
+    max_lk, max_dh = kernel_limits(name)
     if Lk > max_lk:
-        raise ValueError(f"attention_fwd holds at most Lk = {max_lk} keys, got {Lk}")
+        raise ValueError(f"{name} holds at most Lk = {max_lk} keys, got {Lk}")
     if Dh > max_dh:
-        raise ValueError(f"attention_fwd holds at most Dh = {max_dh}, got {Dh}")
+        raise ValueError(f"{name} holds at most Dh = {max_dh}, got {Dh}")
     if causal and Lq != Lk:
         raise ValueError("causal attention requires Lq == Lk")
-    mask_mode, mask_ptr = 0, None
-    if kv_mask is not None:
-        if kv_mask.dtype != torch.bool or kv_mask.device != q.device or not kv_mask.is_contiguous():
-            raise ValueError("kv_mask must be a contiguous bool tensor on q's device")
-        if kv_mask.shape == (Lk,):
-            mask_mode = 1
-        elif kv_mask.shape == (B, Lk):
-            mask_mode = 2
-        else:
-            raise ValueError(f"kv_mask must be ({Lk},) or ({B}, {Lk}), got {tuple(kv_mask.shape)}")
-        mask_ptr = kv_mask.data_ptr()
+    if kv_mask is None:
+        return 0, None
+    if kv_mask.dtype != torch.bool or kv_mask.device != q.device or not kv_mask.is_contiguous():
+        raise ValueError("kv_mask must be a contiguous bool tensor on q's device")
+    if kv_mask.shape == (Lk,):
+        return 1, kv_mask.data_ptr()
+    if kv_mask.shape == (B, Lk):
+        return 2, kv_mask.data_ptr()
+    raise ValueError(f"kv_mask must be ({Lk},) or ({B}, {Lk}), got {tuple(kv_mask.shape)}")
 
-    lib = _library()
+
+def attention_fwd(q, k, v, *, causal=False, kv_mask=None) -> torch.Tensor:
+    """Launch ``csrc/attention_fwd.cu`` on CUDA tensors (no autograd)."""
+    global launches
+    mask_mode, mask_ptr = _check(q, k, v, causal, kv_mask, "attention_fwd")
+    B, H, Lq, Dh = q.shape
+    lib = _library("attention_fwd")
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         rc = lib.mat_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
-            B * H, Lq, Lk, Dh, H, int(causal), mask_mode, _DTYPE_CODE[q.dtype],
+            B * H, Lq, k.shape[2], Dh, H, int(causal), mask_mode, _DTYPE_CODE[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"attention_fwd launch failed: cudaError {rc}")
     launches += 1
     return out
+
+
+def attention_bwd(q, k, v, dout, *, causal=False, kv_mask=None):
+    """Launch ``csrc/attention_bwd.cu`` on CUDA tensors: ``(dq, dk, dv)`` of
+    ``sum(out * dout)`` for ``out = fused_masked_attention(q, k, v)``."""
+    global bwd_launches
+    mask_mode, mask_ptr = _check(q, k, v, causal, kv_mask, "attention_bwd")
+    if dout.shape != q.shape or dout.dtype != q.dtype or dout.device != q.device \
+            or not dout.is_contiguous():
+        raise ValueError(f"dout must be a contiguous {q.dtype} tensor of q's shape {tuple(q.shape)}")
+    B, H, Lq, Dh = q.shape
+    Lk = k.shape[2]
+    lib = _library("attention_bwd")
+    with torch.cuda.device(q.device):
+        if q.device.index not in _smem_limit:
+            _smem_limit[q.device.index] = lib.mat_attention_bwd_smem_limit()
+        need, limit = lib.mat_attention_bwd_smem_bytes(Lq, Lk, Dh), _smem_limit[q.device.index]
+        if need > limit:
+            raise ValueError(f"attention_bwd needs {need} bytes of shared memory at Lq {Lq}, "
+                             f"Lk {Lk}, Dh {Dh}; the card lets a block have {limit}")
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        rc = lib.mat_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), mask_ptr,
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B * H, Lq, Lk, Dh, H, int(causal), mask_mode, _DTYPE_CODE[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"attention_bwd launch failed: cudaError {rc}")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class FusedAttention(torch.autograd.Function):
+    """The forward kernel with the backward kernel as its gradient.  Saves
+    ``q, k, v`` and the mask; the backward recomputes P.  No gradient for
+    the mask or the causal flag."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, causal):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, kv_mask)
+        return attention_fwd(q, k, v, causal=causal, kv_mask=kv_mask)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, kv_mask = ctx.saved_tensors
+        dq, dk, dv = attention_bwd(q, k, v, dout.contiguous(), causal=ctx.causal, kv_mask=kv_mask)
+        return dq, dk, dv, None, None
+
+
+def fused_masked_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    kv_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """``softmax(mask(q k^T / sqrt(Dh))) v`` over ``q (B, H, Lq, Dh)`` and
+    ``k/v (B, H, Lk, Dh)``, with an optional causal tril (Lq == Lk) and an
+    optional boolean ``(Lk,)`` or ``(B, Lk)`` kv mask.  The kernels see the
+    rows flattened to ``N = B * H`` and read row n's per-batch mask at
+    ``n // H``, so nothing is repeated per head.  Differentiable in ``q, k,
+    v``: on CUDA through :class:`FusedAttention`, on the CPU through the
+    plain version."""
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, causal=causal, kv_mask=kv_mask)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_masked_attention runs on cpu or cuda, got {q.device}")
+    return FusedAttention.apply(q, k, v, kv_mask, causal)

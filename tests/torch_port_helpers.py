@@ -109,3 +109,69 @@ def assert_decodes_agree(act, logp, ref_act, ref_logp, ref_logits, nd, atol,
 
 def torch_in(*arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+# ------------------------------------------------------------ DCML env draws
+
+def _jax_reset_draws_one(key, consts):
+    """The draws of ``mat_dcml_tpu`` ``DCMLEnv.reset`` from ``key``
+    (``env.py:147-179``), and the key the reset leaves in its state."""
+    W, P = consts.worker_number_max, consts.local_workload_period
+    key, k_dr, k_at, k_master, k_prs, k_trace, k_ava, _, _ = jax.random.split(key, 9)
+    k_r, k_c, k_pr = jax.random.split(k_master, 3)
+    draws = dict(
+        disable_rate=jax.random.randint(k_dr, (), 1, 81, jnp.int32),
+        arrive_time=jax.random.randint(k_at, (), 0, P, jnp.int32),
+        r_rows=jax.random.randint(k_r, (), consts.r_min, round(consts.r_max * 1.1) + 1),
+        c_cols=jax.random.randint(k_c, (), consts.c_min, round(consts.c_max * 1.1) + 1),
+        master_pr=jax.random.uniform(k_pr, (), minval=consts.pr_min, maxval=consts.pr_max),
+        worker_prs=jax.random.uniform(k_prs, (W,), minval=consts.pr_min, maxval=consts.pr_max),
+        trace_noise=jax.random.uniform(k_trace, (W, P), minval=0.8, maxval=1.2),
+        avail_u=jax.random.uniform(k_ava, (W,)),
+    )
+    return key, draws
+
+
+def _jax_step_draws_one(rng, consts):
+    """The draws of ``DCMLEnv.step`` from the state's key (``env.py:258``,
+    ``:352``, ``:568``), then its auto-reset's; returns the next state's key."""
+    from mat_dcml_tpu.envs.dcml.env import _NB_DRAW_CAP, _uniform_open
+
+    W = consts.worker_number_max
+    _, k_proc, k_done, k_reset = jax.random.split(rng, 4)
+    k_dl, k_ul = jax.random.split(k_proc)
+    k_g, k_t = jax.random.split(k_ul)
+    nxt, reset = _jax_reset_draws_one(k_reset, consts)
+    draws = dict(
+        geom_u=_uniform_open(k_dl, (W,)),
+        nb_u=_uniform_open(k_g, (W, _NB_DRAW_CAP)),
+        nb_normal=jax.random.normal(k_t, (W,)),
+        done_u=jax.random.uniform(k_done, ()),
+        reset=reset,
+    )
+    return nxt, draws
+
+
+def _to_reset_draws(d):
+    from mat_dcml_tpu_torch.envs.dcml.env import ResetDraws
+
+    t = {k: torch.from_numpy(np.array(v)) for k, v in d.items()}
+    for k in ("disable_rate", "arrive_time", "r_rows", "c_cols"):
+        t[k] = t[k].long()
+    return ResetDraws(**t)
+
+
+def jax_reset_draws(keys, consts):
+    """Port ``ResetDraws`` replayed from the per-env JAX keys ``(E,)``."""
+    _, d = jax.vmap(lambda k: _jax_reset_draws_one(k, consts))(keys)
+    return _to_reset_draws(d)
+
+
+def jax_step_draws(rngs, consts):
+    """``(next keys, port StepDraws)`` replayed from the env states' keys."""
+    from mat_dcml_tpu_torch.envs.dcml.env import StepDraws
+
+    nxt, d = jax.vmap(lambda k: _jax_step_draws_one(k, consts))(rngs)
+    reset = _to_reset_draws(d.pop("reset"))
+    return nxt, StepDraws(**{k: torch.from_numpy(np.array(v)) for k, v in d.items()},
+                          reset=reset)
