@@ -11,25 +11,31 @@ Phases, each printed on its own line and each fatal on failure:
 0. environment: the card's name and power limit, torch / CUDA / nvcc
    versions, and the f32 matmul settings (TF32 off);
 1. build: every ``mat_dcml_tpu_torch/csrc/*.cu`` with nvcc into
-   ``mat_dcml_tpu_torch/_build/`` (keyed by a hash of the source);
-2. kernels: each kernel against its plain PyTorch version, f32 and bf16, at
-   the serving shapes (attention_fwd) and the PPO update's (attention_bwd,
-   against autograd through the plain forward), each with a planted-fault
-   reading far outside the tolerance, and the kernel, plain, library and
-   bound times;
-3. the slice: the DCML MAT policy at full width (101 agents, obs 7, state
-   102, n_embd 64, 2 blocks, 2 heads, seeded random weights) served through
-   ContinuousBatcher -> DecodeEngine -> serve_decode(mode="cached") on the
-   card; every attention must go through the kernel (406 launches per
-   dispatch), and a bucket-8 decode must match the port on the CPU;
-4. close: the batcher's thread joined, no thread left behind;
+   ``mat_dcml_tpu_torch/_build/`` (keyed by a hash of the source), one nvcc
+   per source, all started together;
+2. kernels: each kernel against its plain PyTorch version, with a
+   planted-fault reading far outside the tolerance, and the kernel, plain,
+   library and bound times: attention_fwd (f32 and bf16, serving shapes),
+   attention_bwd (the PPO update's shapes, against autograd through the plain
+   forward), and ar_decode, the whole decode, at full DCML width (B = 1, 8,
+   128; deterministic and with noise; avail masked and None; beside it the
+   cached decode's time at the same B);
+3. serving: the DCML MAT policy at full width (101 agents, obs 7, state 102,
+   n_embd 64, 2 blocks, 2 heads, seeded random weights) served through
+   ContinuousBatcher -> DecodeEngine -> serve_decode on the card, first with
+   decode_mode="cached" (every attention through the kernel: 406 launches per
+   dispatch), then with decode_mode="scan" (2 attention launches and 1
+   ar_decode launch per dispatch); a bucket-8 decode must match the port on
+   the CPU, and the scan decode the card's cached decode;
+4. close: each batcher's thread joined, no thread left behind;
 5. training: DCMLRunner at the recipe's full width (101 agents, n_embd 64,
    2 blocks, 2 heads, E = 8, T = 50, 15 PPO epochs x 4 minibatches) runs two
-   iterations (collect, GAE, PPO update) on the card; every attention
-   forward and backward must go through the kernels (counted exactly), the
-   metrics must be finite, and one more update on the card must match the
-   same update by the port on the CPU (same trajectory, weights, Adam state
-   and permutations).
+   iterations (collect, GAE, PPO update) on the card with the cached decode;
+   every attention forward and backward must go through the kernels (counted
+   exactly), the metrics must be finite, and one more update on the card must
+   match the same update by the port on the CPU (same trajectory, weights,
+   Adam state and permutations); then one iteration with
+   decode_mode="scan", whose 50 rollout decodes are 50 ar_decode launches.
 
 The last two lines of standard output are a JSON object describing each
 kernel and the result line ``{"ok": true, "device": {...}}``.  Without a
@@ -66,6 +72,10 @@ TOL = {"float32": 1e-5, "bfloat16": 8e-3}
 BWD_TOL = {"float32": 1e-5, "bfloat16": 2.0**-7}
 LOGP_ATOL_VS_CPU = 1e-4
 NEAR_TIE = 1e-5
+# whole decode, kernel vs plain: log-probs (and the tail's action) within
+# 1e-4, worker actions equal except past a near-tie (summation order)
+AR_LOGP_TOL = 1e-4
+AR_BATCHES = (1, 8, 128)
 # training phase: the recipe (RunConfig / PPOConfig defaults)
 TRAIN_ITERS = 2
 # card vs CPU after one full update: Adam moves an entry by at most lr per
@@ -106,14 +116,13 @@ def phase1_build():
     from mat_dcml_tpu_torch.ops import kernel_lib
 
     t0 = time.perf_counter()
-    for name in kernel_lib.sources():
-        log = kernel_lib.build(name)
+    for name, log in kernel_lib.build_all().items():
         state = "cached" if log is None else "built"
         say(f"[phase 1] {name}: {state} -> {kernel_lib.library_path(name).name}")
         for line in (log or "").splitlines():
             if "registers" in line or "spill" in line or line.endswith("s"):
                 say(f"[phase 1]   {line.strip()}")
-    say(f"[phase 1] build {time.perf_counter() - t0:.2f}s")
+    say(f"[phase 1] build {time.perf_counter() - t0:.2f}s (one nvcc per source, in parallel)")
 
 
 def _time_ms(torch, fn, iters=200):
@@ -122,7 +131,7 @@ def _time_ms(torch, fn, iters=200):
     host's launch cost (Python, ctypes, the autograd engine) is left out;
     ``eager`` launches them from Python, so it is in.  Inputs stay in L2
     (warm) in both."""
-    for _ in range(10):
+    for _ in range(min(10, iters)):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -313,6 +322,157 @@ def phase2_backward(torch):
     return errs, shapes
 
 
+def _agree(act, logp, ref_act, ref_logp, scores, nd, tol, what):
+    """One decode against a reference, numpy ``(B, A)`` each and ``scores (B,
+    A, adim)`` the reference's masked logits (plus noise) per position.  Row
+    by row: worker actions equal up to the first difference, which is allowed
+    only where the top-2 score margin is below NEAR_TIE (a near-tie that
+    summation order may break); log-probs within ``tol`` before it, and the
+    tail's action too where the row never diverged.  Returns ``(worst
+    log-prob error, rows diverging at a near-tie)``; raises otherwise."""
+    import numpy as np
+
+    worst, flips = 0.0, 0
+    for b in range(act.shape[0]):
+        diff = np.flatnonzero(act[b, :nd] != ref_act[b, :nd])
+        end = act.shape[1] if diff.size == 0 else int(diff[0])
+        if diff.size:
+            top2 = np.sort(scores[b, end])[-2:]
+            if not top2[1] - top2[0] < NEAR_TIE:
+                raise AssertionError(f"{what}, row {b}: actions differ at agent {end}, "
+                                     f"margin {top2[1] - top2[0]:.3g}")
+            flips += 1
+        elif not np.allclose(act[b, nd:], ref_act[b, nd:], rtol=0.0, atol=tol):
+            raise AssertionError(f"{what}, row {b}: the tail's action differs")
+        err = float(np.abs(logp[b, :end] - ref_logp[b, :end]).max()) if end else 0.0
+        worst = max(worst, err)
+    if not worst <= tol:
+        raise AssertionError(f"{what}: log-prob differs by {worst} > {tol}")
+    return worst, flips
+
+
+def _scaled_model(torch, cfg, seed):
+    """The DCML MAT on the card with every weight redrawn at O(1) scale: the
+    reference init's 0.01-gain heads give logits near 0, where near-ties
+    would hide most of the decode from a kernel check."""
+    from mat_dcml_tpu_torch.models.mat import MultiAgentTransformer
+
+    model = MultiAgentTransformer(cfg, device="cpu")
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            z = torch.randn(p.shape, generator=g)
+            if p.dim() == 2:
+                p.copy_(z / p.shape[1] ** 0.5)
+            elif name.endswith("weight"):          # LayerNorm scale
+                p.copy_(1.0 + 0.1 * z)
+            else:
+                p.copy_(0.1 * z)
+    return model.to("cuda").eval()
+
+
+def _ar_bound(cfg, weights, B, has_avail):
+    """Least time for the whole decode on this card: per row, ten D x D
+    products a block and position, the head, and the attentions over the
+    keys seen so far (no early exit: every run does all of it), against the
+    weights read once plus obs_rep, noise, avail and the two outputs.  It
+    ignores that the 101 positions run one after another."""
+    A, D, nb, adim = cfg.n_agent, cfg.n_embd, cfg.n_block, cfg.action_dim
+    flops = B * (2 * A * (nb * 10 * D * D + D * D + D * adim) + 8 * nb * D * A * (A + 1) // 2)
+    n_rows = max(1, A - cfg.n_discrete_agents)
+    nbytes = 4 * (sum(t.numel() for t in weights)
+                  + B * (A * D + A * adim + n_rows * adim + (A * adim if has_avail else 0) + 2 * A))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase2_ar_decode(torch):
+    """ar_decode against its plain twin at full DCML width, a planted fault,
+    and the kernel's, the plain twin's and the cached decode's times."""
+    from mat_dcml_tpu_torch.models.decode import cached_decode
+    from mat_dcml_tpu_torch.ops import ar_decode as ard
+    from mat_dcml_tpu_torch.ops.distributions import gumbel_noise
+
+    dev = torch.device("cuda")
+    cfg = _dcml_config()
+    A, D, adim, nd = cfg.n_agent, cfg.n_embd, cfg.action_dim, cfg.n_discrete_agents
+    model = _scaled_model(torch, cfg, SEED + 3)
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    kw = dict(n_head=cfg.n_head, adim=adim, nd=nd)
+
+    def inputs(B, noise, masked):
+        rep = torch.randn(B, A, D, generator=g, device=dev)
+        zeros = torch.zeros(B, A, adim, device=dev)
+        gumbel = gumbel_noise((B, A, adim), g, dev) if noise else zeros
+        normal = torch.randn(B, 1, adim, generator=g, device=dev) * float(noise)
+        avail = None
+        if masked:
+            avail = (torch.rand(B, A, adim, generator=g, device=dev) > 0.2).float()
+            avail[..., 0] = 1.0
+        return rep, gumbel, normal, avail
+
+    def to_np(*ts):
+        return [t.cpu().numpy() for t in ts]
+
+    worst, shapes = 0.0, {}
+    with torch.no_grad():
+        weights = ard.pack_ar_decode_weights(model)
+        for B in AR_BATCHES:
+            for noise in (False, True):
+                for masked in (True, False):
+                    x = inputs(B, noise, masked)
+                    act, logp = ard.fused_ar_decode(weights, *x, **kw)
+                    torch.cuda.synchronize()
+                    ref = ard.ar_decode_plain(weights, *x, return_scores=True, **kw)
+                    label = (f"B {B} {'noise' if noise else 'deterministic'} "
+                             f"avail {'masked' if masked else 'None'}")
+                    err, flips = _agree(*to_np(act, logp, *ref), nd, AR_LOGP_TOL,
+                                        f"ar_decode {label}")
+                    worst = max(worst, err)
+                    say(f"[phase 2] ar_decode {label}: max|logp kernel - plain| {err:.3g} "
+                        f"(tol {AR_LOGP_TOL}), rows diverging at a near-tie {flips}")
+        # what the check must catch: the plain twin fed agent 50's rep replaced
+        # by agent 49's
+        x = inputs(8, True, True)
+        ref_act, ref_logp = ard.ar_decode_plain(weights, *x, **kw)
+        rep_f = x[0].clone()
+        rep_f[:, 50] = x[0][:, 49]
+        f_act, f_logp = ard.ar_decode_plain(weights, rep_f, *x[1:], **kw)
+        fault = (f_logp - ref_logp).abs().max().item()
+        moved = int((f_act[:, :nd] != ref_act[:, :nd]).sum())
+        say(f"[phase 2] ar_decode planted fault (agent 50's rep replaced, B 8): max|logp diff| "
+            f"{fault:.3g} (tol {AR_LOGP_TOL}), worker actions changed {moved}")
+        if not fault >= 10 * AR_LOGP_TOL:
+            raise AssertionError(f"ar_decode tolerance would pass a replaced rep row ({fault})")
+
+        for B in AR_BATCHES:
+            rep, gumbel, normal, avail = inputs(B, True, True)
+            tail = torch.zeros(A, B, adim, device=dev)
+            tail[nd:] = normal.transpose(0, 1)
+            ms, eager_ms = _time_ms(
+                torch, lambda: ard.fused_ar_decode(weights, rep, gumbel, normal, avail, **kw),
+                iters=20)
+            plain_ms, plain_eager_ms = _time_ms(
+                torch, lambda: ard.ar_decode_plain(weights, rep, gumbel, normal, avail, **kw),
+                iters=2)
+            cached_ms, cached_eager_ms = _time_ms(
+                torch, lambda: cached_decode(model, rep, avail, False, gumbel=gumbel,
+                                             tail_noise=tail), iters=2)
+            bound_ms, bound_by = _ar_bound(cfg, weights, B, True)
+            shapes[B] = {"shape": f"obs_rep ({B}, {A}, {D}) f32, noise, avail masked",
+                         "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+                         "plain_eager_ms": plain_eager_ms, "cached_decode_ms": cached_ms,
+                         "cached_decode_eager_ms": cached_eager_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by}
+            say(f"[phase 2] time ar_decode B {B}, device (eager) per call: kernel {ms:.3f} "
+                f"({eager_ms:.3f}) ms, plain {plain_ms:.2f} ({plain_eager_ms:.2f}) ms, cached "
+                f"decode {cached_ms:.2f} ({cached_eager_ms:.2f}) ms, bound {bound_ms * 1e3:.2f} us "
+                f"({bound_by}); L2-warm")
+    torch.cuda.synchronize()
+    return worst, shapes
+
+
 def _dcml_config():
     from mat_dcml_tpu_torch.envs.dcml.constants import DCMLConsts
     from mat_dcml_tpu_torch.models.mat import SEMI_DISCRETE, MATConfig
@@ -346,22 +506,25 @@ def _check_actions(cfg, act, logp):
         raise AssertionError("non-finite coding ratio or log-prob")
 
 
-def _match_cpu(torch, cfg, params, gpu_engine):
-    """A bucket-8 decode on the card against the port on the CPU with the
-    same weights (plain attention there).  Actions equal, log-probs within
-    LOGP_ATOL_VS_CPU, except past a position whose top-2 logit margin on the
-    CPU is below NEAR_TIE (a near-tie summation order may break)."""
+def _match_bucket8(torch, cfg, params, engines):
+    """A bucket-8 decode by each engine on the card (``{mode: engine}``)
+    against the port on the CPU in the same mode, and the scan decode
+    against the card's cached decode, with the same weights: ``_agree`` at
+    LOGP_ATOL_VS_CPU, near-ties judged by the CPU's teacher-forced logits
+    under the CPU's cached actions."""
     import numpy as np
 
     from mat_dcml_tpu_torch.models.mat import MultiAgentTransformer
     from mat_dcml_tpu_torch.serving.engine import DecodeEngine, EngineConfig
 
     state, obs, avail = _requests(cfg, 8, seed=SEED + 1)
-    act, logp = gpu_engine.decode(state, obs, avail)
-    cpu = DecodeEngine(params, cfg, EngineConfig(buckets=(8,)), device="cpu", log_fn=lambda *_: None)
-    ref_act, ref_logp = cpu.decode(state, obs, avail)
+    card = {mode: eng.decode(state, obs, avail) for mode, eng in engines.items()}
+    cpu = {mode: DecodeEngine(params, cfg, EngineConfig(buckets=(8,), decode_mode=mode),
+                              device="cpu", log_fn=lambda *_: None).decode(state, obs, avail)
+           for mode in engines}
     model = MultiAgentTransformer(cfg, device="cpu")
     model.load_state_dict(params)
+    ref_act = cpu["cached"][0] if "cached" in cpu else next(iter(cpu.values()))[0]
     sh = np.zeros((8, cfg.n_agent, cfg.action_input_dim), np.float32)
     sh[:, 0, 0] = 1.0
     idx = ref_act[:, :-1, 0].astype(int).clip(0, cfg.action_dim - 1)
@@ -370,44 +533,35 @@ def _match_cpu(torch, cfg, params, gpu_engine):
     with torch.inference_mode():
         _, _, logits = model(*(torch.from_numpy(x) for x in (state, obs, sh)))
     logits = np.where(avail == 0, -1e10, logits.numpy())
-    nd, worst, flips = cfg.n_discrete_agents, 0.0, 0
-    for b in range(8):
-        diff = np.flatnonzero(act[b, :nd, 0] != ref_act[b, :nd, 0])
-        end = cfg.n_agent if diff.size == 0 else int(diff[0])
-        if diff.size:
-            top2 = np.sort(logits[b, end])[-2:]
-            if not top2[1] - top2[0] < NEAR_TIE:
-                raise AssertionError(f"row {b}: card and CPU actions differ at agent {end}, "
-                                     f"margin {top2[1] - top2[0]:.3g}")
-            flips += 1
-        elif not np.allclose(act[b, nd:], ref_act[b, nd:], atol=LOGP_ATOL_VS_CPU):
-            raise AssertionError(f"row {b}: coding ratio differs from the CPU")
-        err = float(np.abs(logp[b, :end] - ref_logp[b, :end]).max()) if end else 0.0
-        worst = max(worst, err)
-    if not worst <= LOGP_ATOL_VS_CPU:
-        raise AssertionError(f"log-prob differs from the CPU by {worst} > {LOGP_ATOL_VS_CPU}")
-    say(f"[phase 3] bucket 8 vs CPU port: max|logp diff| {worst:.3g} (tol {LOGP_ATOL_VS_CPU}), "
-        f"rows diverging at a near-tie: {flips}")
+    pairs = [(f"{mode} card vs CPU", card[mode], cpu[mode]) for mode in engines]
+    if "scan" in card and "cached" in card:
+        pairs.append(("scan vs cached, card", card["scan"], card["cached"]))
+    for what, (act, logp), (r_act, r_logp) in pairs:
+        worst, flips = _agree(act[..., 0], logp[..., 0], r_act[..., 0], r_logp[..., 0], logits,
+                              cfg.n_discrete_agents, LOGP_ATOL_VS_CPU, f"bucket 8 {what}")
+        say(f"[phase 3] bucket 8 {what}: max|logp diff| {worst:.3g} (tol {LOGP_ATOL_VS_CPU}), "
+            f"rows diverging at a near-tie: {flips}")
 
 
-def phase3_slice(torch):
+def phase3_serve(torch, params, mode):
+    """Serve the 96 requests through batcher -> engine(decode_mode=mode);
+    returns ``(engine, batcher, (attention_fwd launches, ar_decode
+    launches))``."""
     import numpy as np
 
-    from mat_dcml_tpu_torch.models.mat import MultiAgentTransformer
+    from mat_dcml_tpu_torch.ops import ar_decode as ard
     from mat_dcml_tpu_torch.ops import cuda_attention as ca
     from mat_dcml_tpu_torch.serving.batcher import BatcherConfig, ContinuousBatcher
     from mat_dcml_tpu_torch.serving.engine import DecodeEngine, EngineConfig
 
     cfg = _dcml_config()
-    params = MultiAgentTransformer(
-        cfg, device="cpu", generator=torch.Generator().manual_seed(SEED)).state_dict()
-    engine = DecodeEngine(params, cfg, EngineConfig(buckets=BUCKETS),
-                          log_fn=lambda m: say(f"[phase 3] {m}"))
+    engine = DecodeEngine(params, cfg, EngineConfig(buckets=BUCKETS, decode_mode=mode),
+                          log_fn=lambda m: say(f"[phase 3] {mode}: {m}"))
     if engine.device.type != "cuda":
         raise AssertionError(f"engine defaulted to {engine.device}")
     engine.warmup()
     batcher = ContinuousBatcher(engine, BatcherConfig(max_batch_wait_ms=5.0),
-                                log_fn=lambda m: say(f"[phase 3] {m}"))
+                                log_fn=lambda m: say(f"[phase 3] {mode}: {m}"))
 
     n_req = N_CLIENTS * REQUESTS_PER_CLIENT
     state, obs, avail = _requests(cfg, n_req, seed=SEED)
@@ -435,7 +589,7 @@ def phase3_slice(torch):
             errors.append(repr(e))
 
     dispatch_before = dict(engine.dispatch_counts)
-    ca.launches = 0
+    ca.launches = ard.launches = 0
     t0 = time.perf_counter()
     clients = [threading.Thread(target=client, args=(c,), name=f"client-{c}") for c in range(N_CLIENTS)]
     for t in clients:
@@ -443,16 +597,22 @@ def phase3_slice(torch):
     for t in clients:
         t.join(timeout=600)
     wall = time.perf_counter() - t0
-    launches = ca.launches
+    launches = (ca.launches, ard.launches)
     torch.cuda.synchronize()
     if errors or any(t.is_alive() for t in clients):
         raise AssertionError(f"clients failed: {errors[:3]}")
     dispatches = {b: engine.dispatch_counts[b] - dispatch_before[b] for b in BUCKETS}
     n_dispatch = sum(dispatches.values())
-    say(f"[phase 3] served {n_req} requests from {N_CLIENTS} clients in {n_dispatch} dispatches "
-        f"{ {b: n for b, n in dispatches.items() if n} }; attention_fwd launches {launches}")
-    if launches != 406 * n_dispatch or n_dispatch == 0:
-        raise AssertionError(f"expected 406 launches per dispatch, got {launches} for {n_dispatch}")
+    # per dispatch: the encoder's attentions, then either 2 per block and
+    # position (cached) or the one whole-decode launch (scan)
+    nb, A = cfg.n_block, cfg.n_agent
+    per = (nb + A * 2 * nb, 0) if mode == "cached" else (nb, 1)
+    say(f"[phase 3] {mode}: served {n_req} requests from {N_CLIENTS} clients in {n_dispatch} "
+        f"dispatches { {b: n for b, n in dispatches.items() if n} }; attention_fwd launches "
+        f"{launches[0]}, ar_decode launches {launches[1]} (expected {per} per dispatch)")
+    if launches != (per[0] * n_dispatch, per[1] * n_dispatch) or n_dispatch == 0:
+        raise AssertionError(f"expected {per} launches per dispatch, got {launches} for "
+                             f"{n_dispatch}")
     # the batcher stayed on its normal path: no failed bucket dispatch
     # retried as bucket-1 singles, nothing shed or expired, and every engine
     # dispatch was one whole batch
@@ -468,13 +628,12 @@ def phase3_slice(torch):
     logp = np.stack([r[1] for r in results])
     _check_actions(cfg, act, logp)
     lat = np.asarray(lat_ms)
-    say(f"[phase 3] {n_req / wall:.2f} requests/s; latency p50 {np.percentile(lat, 50):.2f} ms, "
-        f"p99 {np.percentile(lat, 99):.2f} ms; engine decode p50 "
-        f"{engine.telemetry.hists['serving_decode_ms'].quantile(0.5):.2f} ms; "
-        f"worker actions mean {act[:, :-1].mean():.3f}, coding ratio mean {act[:, -1].mean():.4f}")
-    _match_cpu(torch, cfg, params, engine)
+    say(f"[phase 3] {mode}: {n_req / wall:.2f} requests/s; latency p50 "
+        f"{np.percentile(lat, 50):.2f} ms, p99 {np.percentile(lat, 99):.2f} ms; engine decode "
+        f"p50 {engine.telemetry.hists['serving_decode_ms'].quantile(0.5):.2f} ms; worker "
+        f"actions mean {act[:, :-1].mean():.3f}, coding ratio mean {act[:, -1].mean():.4f}")
     torch.cuda.synchronize()
-    return batcher, launches
+    return engine, batcher, launches
 
 
 def phase4_close(torch, batcher):
@@ -624,6 +783,50 @@ def phase5_training(torch):
     return fwd, bwd, records
 
 
+def phase5_scan_iteration(torch, cached_records):
+    """One iteration of the recipe with decode_mode="scan": the rollout's
+    50 decodes are 50 ar_decode launches and the encoder's attentions; the
+    update is the same as with the cached decode.  Returns ``(attention_fwd,
+    attention_bwd, ar_decode)`` launches and the record."""
+    import math
+    import tempfile
+
+    from mat_dcml_tpu_torch.config import RunConfig
+    from mat_dcml_tpu_torch.ops import ar_decode as ard
+    from mat_dcml_tpu_torch.ops import cuda_attention as ca
+    from mat_dcml_tpu_torch.training.ppo import PPOConfig
+    from mat_dcml_tpu_torch.training.runner import DCMLRunner
+
+    ppo = PPOConfig()
+    with tempfile.TemporaryDirectory() as run_dir:
+        run = RunConfig(seed=SEED, log_interval=1, run_dir=run_dir, decode_mode="scan")
+        runner = DCMLRunner(run, ppo, log_fn=lambda m: say(f"[phase 5] scan: {m}"))
+        cfg = runner.policy.cfg
+        train_state, rollout_state = runner.setup()
+        torch.cuda.synchronize()
+        ca.launches = ca.bwd_launches = ard.launches = 0
+        runner.train_loop(1, train_state, rollout_state)
+        torch.cuda.synchronize()
+        launches = (ca.launches, ca.bwd_launches, ard.launches)
+        record = runner.records[0]
+    _, _, upd_fwd, upd_bwd = _expected_launches(cfg, run, ppo, 1)
+    want = (run.episode_length * cfg.n_block + upd_fwd, upd_bwd, run.episode_length)
+    it = record["step_time_collect"] + record["step_time_train"]
+    say(f"[phase 5] scan iteration: collect {record['step_time_collect']:.3f}s, update "
+        f"{record['step_time_train']:.3f}s ({record['step_time_train'] / it:.1%} of {it:.3f}s); "
+        f"attention_fwd / attention_bwd / ar_decode launches {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"scan iteration launched {launches}, expected {want}")
+    if not all(math.isfinite(v) for v in record.values()):
+        raise AssertionError(f"scan iteration metrics not finite: {record}")
+    ref = cached_records[0]
+    say("[phase 5] scan vs cached first iteration (same seed; a near-tie may part them): "
+        + ", ".join(f"{k} {record[k]:.6g}/{ref[k]:.6g}" for k in (
+            "average_step_rewards", "value_loss", "policy_loss", "dist_entropy")))
+    torch.cuda.synchronize()
+    return launches, record
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(BUDGET_S, exit=True)
     t_start = time.perf_counter()
@@ -640,20 +843,31 @@ def main() -> int:
     torch.cuda.synchronize()
     errs, shapes = phase2_kernels(torch)
     bwd_errs, bwd_shapes = phase2_backward(torch)
-    batcher, launches = phase3_slice(torch)
-    phase4_close(torch, batcher)
-    train_fwd, train_bwd, _ = phase5_training(torch)
+    ar_err, ar_shapes = phase2_ar_decode(torch)
+    from mat_dcml_tpu_torch.models.mat import MultiAgentTransformer
+
+    params = MultiAgentTransformer(
+        _dcml_config(), device="cpu", generator=torch.Generator().manual_seed(SEED)).state_dict()
+    engines, serve = {}, {}
+    for mode in ("cached", "scan"):
+        engines[mode], batcher, serve[mode] = phase3_serve(torch, params, mode)
+        phase4_close(torch, batcher)
+    _match_bucket8(torch, _dcml_config(), params, engines)
+    train_fwd, train_bwd, records = phase5_training(torch)
+    (scan_fwd, scan_bwd, scan_ar), _ = phase5_scan_iteration(torch, records)
 
     dec = shapes["decode"]
     f32_err = max(e for (_, dt), e in errs.items() if dt == "float32")
     bf16_err = max(e for (_, dt), e in errs.items() if dt == "bfloat16")
+    fwd_paths = {"serving_cached": serve["cached"][0], "serving_scan": serve["scan"][0],
+                 "training_cached": train_fwd, "training_scan": scan_fwd}
     fwd_kernel = {
         "name": "attention_fwd",
         "route": "cuda",
         "source": "mat_dcml_tpu_torch/csrc/attention_fwd.cu",
         "replaces": "mat_dcml_tpu/ops/pallas_attention.py:133",
-        "launches": launches + train_fwd,
-        "launches_by_path": {"serving": launches, "training": train_fwd},
+        "launches": sum(fwd_paths.values()),
+        "launches_by_path": fwd_paths,
         "max_abs_err": f32_err,
         "ms": dec["ms"], "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
         "bound_by": dec["bound_by"], "library_ms": dec["library_ms"],
@@ -667,8 +881,9 @@ def main() -> int:
         "route": "cuda",
         "source": "mat_dcml_tpu_torch/csrc/attention_bwd.cu",
         "replaces": "mat_dcml_tpu/ops/pallas_attention.py:153",
-        "launches": train_bwd,
-        "launches_by_path": {"serving": 0, "training": train_bwd},
+        "launches": train_bwd + scan_bwd,
+        "launches_by_path": {"serving_cached": 0, "serving_scan": 0,
+                             "training_cached": train_bwd, "training_scan": scan_bwd},
         "max_abs_err": max(e for (_, dt), e in bwd_errs.items() if dt == "float32"),
         "ms": enc["ms"], "plain_ms": enc["plain_ms"], "bound_ms": enc["bound_ms"],
         "bound_by": enc["bound_by"], "library_ms": enc["library_ms"],
@@ -676,9 +891,26 @@ def main() -> int:
         "max_abs_err_bf16": max(e for (_, dt), e in bwd_errs.items() if dt == "bfloat16"),
         "shapes": bwd_shapes,
     }
+    at8 = ar_shapes[8]
+    ar_kernel = {
+        "name": "ar_decode",
+        "route": "cuda",
+        "source": "mat_dcml_tpu_torch/csrc/ar_decode.cu",
+        "replaces": "mat_dcml_tpu/ops/pallas_decode.py:595",
+        "launches": serve["scan"][1] + scan_ar,
+        "launches_by_path": {"serving_cached": serve["cached"][1], "serving_scan": serve["scan"][1],
+                             "training_cached": 0, "training_scan": scan_ar},
+        "max_abs_err": ar_err,
+        "ms": at8["ms"], "plain_ms": at8["plain_ms"], "bound_ms": at8["bound_ms"],
+        "bound_by": at8["bound_by"], "library_ms": None,
+        "timed_at": "B=8 (the rollout's batch)",
+        "max_abs_err_of": "log-prob",
+        "cached_decode_ms": at8["cached_decode_ms"],
+        "shapes": {f"B={b}": v for b, v in ar_shapes.items()},
+    }
     say(f"[done] {time.perf_counter() - t_start:.1f}s wall")
     say(card)   # as nvidia-smi gives it: name, power limit
-    say(json.dumps({"kernels": [fwd_kernel, bwd_kernel]}))
+    say(json.dumps({"kernels": [fwd_kernel, bwd_kernel, ar_kernel]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -32,6 +32,8 @@ class RunConfig:
     n_embd: int = 64
     n_head: int = 2
     model_dtype: str = "float32"
+    # rollout decode: "cached", or "scan" (the whole decode in one kernel
+    # launch on the card); "stride" is deterministic, so it cannot collect
     decode_mode: str = "cached"
     device: str = "cuda"
 

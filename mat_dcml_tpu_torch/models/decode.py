@@ -1,12 +1,14 @@
-"""Action decode for MAT: the serving entry, the cached decode, and the
-teacher-forced evaluation of the PPO update.
+"""Action decode for MAT: the serving entry, the exact decodes, the stride
+decode and the teacher-forced evaluation of the PPO update.
 
 Port of ``mat_dcml_tpu/models/decode.py`` for ``mode="cached"`` (the serving
-and rollout default) and ``parallel_act``.  The JAX ``lax.scan`` over agents becomes a Python loop
-over positions; the packed K/V cache is written in place.  Sampling noise is
-an input (Gumbel for categorical draws, standard normals for the Gaussian
-tail), drawn from the caller's ``torch.Generator`` when not given, so a test
-can replay the JAX key chain exactly.
+and rollout default), ``mode="scan"`` (:func:`ar_decode`, the whole decode in
+one launch of ``csrc/ar_decode.cu`` on the card), ``mode="stride"`` and
+``parallel_act``.  In the cached decode the JAX ``lax.scan`` over agents
+becomes a Python loop over positions; the packed K/V cache is written in
+place.  Sampling noise is an input (Gumbel for categorical draws, standard
+normals for the Gaussian tail), drawn from the caller's ``torch.Generator``
+when not given, so a test can replay the JAX key chain exactly.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from mat_dcml_tpu_torch.models.mat import (
     MultiAgentTransformer,
 )
 from mat_dcml_tpu_torch.ops import distributions as D
+from mat_dcml_tpu_torch.ops.ar_decode import fused_ar_decode, pack_ar_decode_weights
 
 
 class DecodeResult(NamedTuple):
@@ -41,6 +44,7 @@ def serve_decode(
     available_actions=None,
     deterministic: bool = True,
     mode: str = "cached",
+    stride: int = 2,
     *,
     device=None,
     generator: Optional[torch.Generator] = None,
@@ -52,14 +56,26 @@ def serve_decode(
     ``state (B, A, state_dim)``, ``obs (B, A, obs_dim)`` and
     ``available_actions (B, A, action_dim)`` may be arrays or tensors; they
     are moved to ``device`` (default ``cuda``), where ``model`` must live.
-    Only ``mode="cached"`` is ported.  Returns ``(values, DecodeResult)``.
+
+    ``mode``: ``"cached"`` = :func:`cached_decode`; ``"scan"`` =
+    :func:`ar_decode`, the same exact decode in one kernel launch on the
+    card; ``"stride"`` = :func:`stride_decode`, the reference's block-commit
+    approximation, deterministic only (``deterministic=False`` raises).
+    ``"spec"`` is not ported yet.  Both exact modes read the same noise.
+    Returns ``(values, DecodeResult)``.
     """
     if mode not in DECODE_MODES:
         raise ValueError(f"mode must be one of {DECODE_MODES}, got {mode!r}")
-    if mode != "cached":
+    if mode == "stride" and not deterministic:
+        raise ValueError(
+            "decode mode 'stride' is deterministic-only (the reference's "
+            "block-commit approximation has no stochastic sampling path); "
+            "use mode='scan' or mode='cached' for stochastic decode"
+        )
+    if mode == "spec":
         raise NotImplementedError(
-            f"decode mode {mode!r} is not ported yet (ROADMAP.md queue 1, item 4); "
-            "use mode='cached'"
+            "decode mode 'spec' is not ported yet (ROADMAP.md queue 1, item 11); "
+            "use mode='cached' or mode='scan'"
         )
     dev = resolve_device(device)
     if model.device != dev:
@@ -70,10 +86,13 @@ def serve_decode(
 
     with torch.inference_mode():
         v_loc, obs_rep = model.encode(put(state), put(obs))
-        res = cached_decode(
-            model, obs_rep, put(available_actions), deterministic,
-            generator=generator, gumbel=gumbel, tail_noise=tail_noise,
-        )
+        avail = put(available_actions)
+        if mode == "stride":
+            res = stride_decode(model, obs_rep, avail, stride=stride)
+        else:
+            decode = cached_decode if mode == "cached" else ar_decode
+            res = decode(model, obs_rep, avail, deterministic,
+                         generator=generator, gumbel=gumbel, tail_noise=tail_noise)
     return v_loc, res
 
 
@@ -148,13 +167,7 @@ def cached_decode(
     std = model.action_std() if cfg.action_type != DISCRETE else None
 
     if not deterministic:
-        if gumbel is None:
-            gumbel = D.gumbel_noise((B, A, adim), generator, dev)
-        if tail_noise is None and cfg.action_type == SEMI_DISCRETE:
-            tail_noise = torch.randn((A, B, adim), generator=generator, device=dev)
-        gumbel = gumbel.to(dev)
-        if tail_noise is not None:
-            tail_noise = tail_noise.to(dev)
+        gumbel, tail_noise = _draw_noise(cfg, B, dev, generator, gumbel, tail_noise)
 
     shifted = torch.zeros(B, 1, cfg.action_input_dim, device=dev)
     shifted[:, 0, 0] = 1.0   # start token
@@ -176,6 +189,134 @@ def cached_decode(
         acts.append(act)
         logps.append(logp)
     return DecodeResult(torch.stack(acts, dim=1), torch.stack(logps, dim=1))
+
+
+def _draw_noise(cfg, B, dev, generator, gumbel, tail_noise):
+    """``(gumbel (B, A, adim), tail_noise (A, B, adim) or None)`` on ``dev``:
+    the given noise, or draws from ``generator``, Gumbel first."""
+    A, adim = cfg.n_agent, cfg.action_dim
+    if gumbel is None:
+        gumbel = D.gumbel_noise((B, A, adim), generator, dev)
+    if tail_noise is None and cfg.action_type == SEMI_DISCRETE:
+        tail_noise = torch.randn((A, B, adim), generator=generator, device=dev)
+    return gumbel.to(dev), None if tail_noise is None else tail_noise.to(dev)
+
+
+# ---------------------------------------------------------------------------
+# Exact decode in one launch (mode="scan")
+# ---------------------------------------------------------------------------
+
+def ar_decode(
+    model: MultiAgentTransformer,
+    obs_rep: torch.Tensor,
+    available_actions: Optional[torch.Tensor],
+    deterministic: bool = False,
+    *,
+    generator: Optional[torch.Generator] = None,
+    gumbel: Optional[torch.Tensor] = None,
+    tail_noise: Optional[torch.Tensor] = None,
+) -> DecodeResult:
+    """Exact autoregressive decode over the agent axis (JAX ``ar_decode``,
+    ``mode="scan"``): the same decode as :func:`cached_decode`, run whole by
+    :func:`_fused_ar_decode_path`.  It reads the same noise as
+    :func:`cached_decode` (given, or drawn from ``generator`` in the same
+    order).  The JAX signature's ``obs`` is left out, as in
+    ``Decoder.forward``: only MAT-Dec's decoder reads it (``dec_actor``, not
+    ported: ROADMAP.md queue 1, item 3)."""
+    cfg = model.cfg
+    if cfg.action_type not in (DISCRETE, SEMI_DISCRETE):
+        raise NotImplementedError(
+            f"ar_decode for action_type {cfg.action_type!r} is not ported yet: it needs "
+            "fused_decode_step and continuous sampling (ROADMAP.md queue 2, item 2; "
+            "queue 1, item 4)"
+        )
+    return _fused_ar_decode_path(model, obs_rep, available_actions, deterministic,
+                                 generator=generator, gumbel=gumbel, tail_noise=tail_noise)
+
+
+def _fused_ar_decode_path(model, obs_rep, available_actions, deterministic, *,
+                          generator, gumbel, tail_noise) -> DecodeResult:
+    """The whole decode through ``ops/ar_decode.fused_ar_decode``: the kernel
+    on the card, its plain twin on the CPU.  Sampling noise becomes the
+    kernel's inputs: the Gumbel tensor, and the tail noise of agents ``>=
+    nd`` as ``(B, A - nd, adim)`` normal rows; a deterministic decode passes
+    zeros (argmax of the masked logits, the tail's mean), as the JAX path
+    does."""
+    cfg = model.cfg
+    dev = obs_rep.device
+    B, A, adim = obs_rep.shape[0], cfg.n_agent, cfg.action_dim
+    nd = cfg.n_discrete_agents if cfg.action_type == SEMI_DISCRETE else A
+    n_rows = max(1, A - nd)
+    normal = torch.zeros(B, n_rows, adim, device=dev)
+    if deterministic:
+        gumbel = torch.zeros(B, A, adim, device=dev)
+    else:
+        gumbel, tail_noise = _draw_noise(cfg, B, dev, generator, gumbel, tail_noise)
+        if A > nd:
+            normal = tail_noise[nd:].transpose(0, 1).contiguous()
+    avail = None if available_actions is None else available_actions.float().contiguous()
+    act, logp = fused_ar_decode(
+        pack_ar_decode_weights(model), obs_rep.contiguous(), gumbel.contiguous(), normal, avail,
+        n_head=cfg.n_head, adim=adim, nd=nd,
+    )
+    return DecodeResult(act[..., None], logp[..., None])
+
+
+# ---------------------------------------------------------------------------
+# Stride-batched deterministic decode (benchmark-protocol parity)
+# ---------------------------------------------------------------------------
+
+def stride_decode(
+    model: MultiAgentTransformer,
+    obs_rep: torch.Tensor,
+    available_actions: Optional[torch.Tensor],
+    stride: int = 2,
+) -> DecodeResult:
+    """The reference's deterministic block-commit decode
+    (``transformer_act.py:37-75``; JAX ``stride_decode``): decode agent 0
+    alone, then commit blocks of ``stride`` discrete agents per full decoder
+    pass (agents inside a block do not see each other's actions), then the
+    continuous tail one at a time.  Every pass is the teacher-forced decoder,
+    whose attentions go through the attention kernel on the card."""
+    cfg = model.cfg
+    if cfg.action_type not in (DISCRETE, SEMI_DISCRETE):
+        raise NotImplementedError(
+            f"stride decode is discrete-family only, not {cfg.action_type!r}"
+        )
+    dev = obs_rep.device
+    B, A, adim = obs_rep.shape[0], cfg.n_agent, cfg.action_dim
+    nd = cfg.n_discrete_agents if cfg.action_type == SEMI_DISCRETE else A
+    std = model.action_std() if cfg.action_type == SEMI_DISCRETE else None
+    if available_actions is None:
+        available_actions = torch.ones(B, A, adim, device=dev)
+
+    shifted = torch.zeros(B, A, adim + 1, device=dev)
+    shifted[:, 0, 0] = 1.0
+    action = torch.zeros(B, A, 1, device=dev)
+    log_prob = torch.zeros(B, A, 1, device=dev)
+    # block boundaries: [0, 1), [1, 1 + stride), ... then the tail one by one
+    bounds = [(0, 1)]
+    s = 1
+    while s < nd:
+        bounds.append((s, min(s + stride, nd)))
+        s = bounds[-1][1]
+    bounds += [(t, t + 1) for t in range(s, A)]
+
+    for s, e in bounds:
+        logits = model.decoder(shifted, obs_rep)[:, s:e]
+        if e <= nd:
+            masked = D.mask_logits(logits, available_actions[:, s:e])
+            idx = torch.argmax(masked, dim=-1)                          # (B, e - s)
+            action[:, s:e, 0] = idx.float()
+            log_prob[:, s:e, 0] = D.categorical_log_prob(masked, idx)
+            upto = min(e + 1, A)
+            onehot = torch.nn.functional.one_hot(idx[:, :upto - s - 1], adim).float()
+            shifted[:, s + 1:upto, 1:] = onehot
+        else:
+            mean = logits[:, 0]
+            action[:, s, 0] = mean[:, -1]
+            log_prob[:, s, 0] = D.normal_log_prob(mean, std, mean)[:, -1]
+    return DecodeResult(action, log_prob)
 
 
 # ---------------------------------------------------------------------------

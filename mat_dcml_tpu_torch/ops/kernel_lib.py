@@ -5,8 +5,9 @@ Each ``csrc/<name>.cu`` compiles alone into a shared library with a plain
 takes seconds and needs neither ``ninja`` nor ``torch.utils.cpp_extension``.
 Libraries go to ``mat_dcml_tpu_torch/_build/`` (listed in ``.gitignore``),
 named by a hash of the source and the flags: a changed source rebuilds, an
-unchanged one loads at once.  A file lock keeps concurrent processes from
-building the same library twice.
+unchanged one loads at once.  A file lock per source keeps concurrent
+processes from building the same library twice, and lets different sources
+build at the same time.
 
 Nothing here runs at import: the tests import every module on machines with
 no ``nvcc`` and no card.
@@ -22,6 +23,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -67,7 +69,7 @@ def build(name: str) -> Optional[str]:
     """
     out = library_path(name)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / ".lock", "w") as lock:
+    with open(BUILD_DIR / f".lock-{name}", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if out.exists():
             return None
@@ -84,6 +86,16 @@ def build(name: str) -> Optional[str]:
             if tmp.exists():
                 tmp.unlink()
     return f"{time.perf_counter() - t0:.1f}s\n{proc.stdout}"
+
+
+def build_all() -> Dict[str, Optional[str]]:
+    """Build every ``csrc/*.cu`` at once, one ``nvcc`` per source, all
+    started together; returns each source's :func:`build` log.  Raises the
+    first failure after every build has ended."""
+    names = sources()
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        futures = {name: pool.submit(build, name) for name in names}
+    return {name: fut.result() for name, fut in futures.items()}
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,4 +1,4 @@
-"""Decode engine: a fixed ladder of batch buckets over the cached decode.
+"""Decode engine: a fixed ladder of batch buckets over ``serve_decode``.
 
 Port of ``mat_dcml_tpu/serving/engine.py``.  The JAX engine compiles one
 program per bucket ahead of time; PyTorch runs eagerly, so here a bucket is
@@ -28,10 +28,15 @@ from mat_dcml_tpu_torch.telemetry import Telemetry
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """``buckets`` is the batch-size ladder, ascending; the batcher pads each
-    dispatch up to the smallest bucket that fits."""
+    dispatch up to the smallest bucket that fits.  ``decode_mode``:
+    ``"cached"`` (O(1)-per-step packed-KV decode), ``"scan"`` (the same exact
+    decode in one kernel launch on the card) or ``"stride"`` (the reference's
+    block-commit approximation, ``stride`` agents a pass; benchmark-protocol
+    parity only)."""
 
     buckets: Tuple[int, ...] = (1, 8, 32, 128)
     decode_mode: str = "cached"
+    stride: int = 2
     serve_dtype: str = "f32"
 
     def __post_init__(self):
@@ -41,9 +46,9 @@ class EngineConfig:
             raise ValueError(f"buckets must be strictly ascending and positive, got {self.buckets}")
         if self.decode_mode not in DECODE_MODES:
             raise ValueError(f"decode_mode must be one of {DECODE_MODES}, got {self.decode_mode!r}")
-        if self.decode_mode != "cached":
+        if self.decode_mode == "spec":
             raise NotImplementedError(
-                f"decode_mode {self.decode_mode!r} is not ported yet (ROADMAP.md queue 1, item 4)"
+                "decode_mode 'spec' is not ported yet (ROADMAP.md queue 1, item 11)"
             )
         if self.serve_dtype not in ("f32", "bf16"):
             raise ValueError(f"serve_dtype must be 'f32' or 'bf16', got {self.serve_dtype!r}")
@@ -96,7 +101,9 @@ class DecodeEngine:
         return self._zero_batches[b]
 
     def _run(self, model, state, obs, avail):
-        _, res = serve_decode(model, state, obs, avail, deterministic=True, device=self.device)
+        ecfg = self.engine_cfg
+        _, res = serve_decode(model, state, obs, avail, deterministic=True,
+                              mode=ecfg.decode_mode, stride=ecfg.stride, device=self.device)
         return res.action.cpu().numpy(), res.log_prob.cpu().numpy()
 
     # ------------------------------------------------------------- lifecycle
@@ -113,7 +120,10 @@ class DecodeEngine:
         tel.gauge("serving_buckets", float(len(self.engine_cfg.buckets)))
         tel.gauge("serving_dtype_bits", 32.0)
         c = self.cfg
+        if self.engine_cfg.decode_mode == "stride":
+            return   # teacher-forced passes: no K/V cache
         for b in self.engine_cfg.buckets:
+            # the scan decode's workspace holds the same K/V as the packed cache
             tel.gauge(f"decode_cache_bytes_b{b}",
                       float(packed_cache_bytes(c.n_block, b, c.n_agent, c.n_embd)))
 

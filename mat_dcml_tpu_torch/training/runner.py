@@ -43,6 +43,13 @@ def build_mat_policy(run: RunConfig, env: DCMLEnv, device=None,
         raise NotImplementedError(
             f"model_dtype={run.model_dtype!r}: the port's trunk is f32 (ROADMAP.md queue 1, item 3)"
         )
+    if run.decode_mode == "stride":
+        # stride is the deterministic benchmark-protocol decode; it cannot
+        # sample, so it cannot collect rollouts
+        raise ValueError(
+            "decode_mode='stride' is eval-only (see DCMLRunner.evaluate); "
+            "training collect needs 'cached', 'scan', or 'spec'"
+        )
     cfg = MATConfig(
         n_agent=env.n_agents, obs_dim=env.obs_dim, state_dim=env.share_obs_dim,
         action_dim=env.action_dim, n_block=run.n_block, n_embd=run.n_embd, n_head=run.n_head,

@@ -13,12 +13,21 @@ output).  Backward (against autograd through the plain version): f32 atol
 2**-7 relative (dq, dk, dv are rounded to bf16 on both sides, dP and P where
 plain rounds them, and a sum of 101 terms in a different order can move a
 bf16 result by an ulp, at most 2**-7 of its size).
+
+Whole decode (``ar_decode``) against its plain twin at the DCML width, f32:
+log-probs and the tail's actions atol 1e-4, worker actions equal except past
+a position whose top-2 plain score margin is below 1e-5 (a near-tie that
+summation order may break).
 """
 
 import pytest
 import torch
 
+from mat_dcml_tpu_torch.models.decode import serve_decode
+from mat_dcml_tpu_torch.models.mat import SEMI_DISCRETE, MATConfig, MultiAgentTransformer
+from mat_dcml_tpu_torch.ops import ar_decode as ard
 from mat_dcml_tpu_torch.ops import cuda_attention
+from mat_dcml_tpu_torch.ops.distributions import gumbel_noise
 
 pytestmark = pytest.mark.cuda
 
@@ -132,3 +141,123 @@ def test_backward_kernel_rejects_what_it_cannot_hold(cuda):
         cuda_attention.attention_bwd(q, q, q, q)
     with pytest.raises(ValueError, match="dout"):
         cuda_attention.attention_bwd(q, q, q, q[..., :64].contiguous())
+
+
+# ------------------------------------------------------------- whole decode
+
+DCML = MATConfig(n_agent=101, obs_dim=7, state_dim=102, action_dim=2, n_block=2, n_embd=64,
+                 n_head=2, action_type=SEMI_DISCRETE, semi_index=-1)
+DECODE_TOL = 1e-4
+NEAR_TIE = 1e-5
+
+
+def _dcml_model(device, seed=0):
+    """The DCML-width MAT with every weight redrawn at O(1) scale: the
+    reference init's 0.01-gain heads give logits near 0 and near-ties
+    everywhere."""
+    model = MultiAgentTransformer(DCML, device="cpu")
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            z = torch.randn(p.shape, generator=g)
+            if p.dim() == 2:
+                p.copy_(z / p.shape[1] ** 0.5)
+            elif name.endswith("weight"):          # LayerNorm scale
+                p.copy_(1.0 + 0.1 * z)
+            else:
+                p.copy_(0.1 * z)
+    return model.to(device)
+
+
+def _decode_inputs(device, B, noise, masked, seed):
+    A, adim = DCML.n_agent, DCML.action_dim
+    g = torch.Generator(device=device).manual_seed(seed)
+    rep = torch.randn(B, A, DCML.n_embd, generator=g, device=device)
+    gumbel = gumbel_noise((B, A, adim), g, device) if noise else torch.zeros(B, A, adim,
+                                                                            device=device)
+    normal = torch.randn(B, 1, adim, generator=g, device=device) * float(noise)
+    avail = None
+    if masked:
+        avail = (torch.rand(B, A, adim, generator=g, device=device) > 0.2).float()
+        avail[..., 0] = 1.0
+    return rep, gumbel, normal, avail
+
+
+def _check_decodes_agree(act, logp, ref_act, ref_logp, scores, nd):
+    """Row by row: worker actions equal up to the first difference, which is
+    allowed only at a near-tie of the reference's scores; log-probs (and the
+    tail's action where the row never diverged) within DECODE_TOL before it."""
+    act, logp, ref_act, ref_logp, scores = (x.cpu() for x in (act, logp, ref_act, ref_logp,
+                                                               scores))
+    for b in range(act.shape[0]):
+        diff = (act[b, :nd] != ref_act[b, :nd]).nonzero()
+        end = act.shape[1] if diff.numel() == 0 else int(diff[0])
+        if diff.numel():
+            top2 = scores[b, end].sort().values[-2:]
+            assert top2[1] - top2[0] < NEAR_TIE, f"row {b}: action differs at agent {end}"
+        else:
+            assert (act[b, nd:] - ref_act[b, nd:]).abs().max() <= DECODE_TOL, f"row {b}: tail"
+        if end:
+            assert (logp[b, :end] - ref_logp[b, :end]).abs().max() <= DECODE_TOL, f"row {b}"
+
+
+@pytest.mark.parametrize("masked", [True, False], ids=["avail", "avail_none"])
+@pytest.mark.parametrize("noise", [False, True], ids=["deterministic", "noise"])
+@pytest.mark.parametrize("B", [1, 3, 8, 128])
+def test_ar_decode_kernel_matches_plain(cuda, B, noise, masked):
+    weights = ard.pack_ar_decode_weights(_dcml_model(cuda))
+    rep, gumbel, normal, avail = _decode_inputs(cuda, B, noise, masked, seed=B)
+    kw = dict(n_head=DCML.n_head, adim=DCML.action_dim, nd=DCML.n_discrete_agents)
+    before = ard.launches
+    act, logp = ard.fused_ar_decode(weights, rep, gumbel, normal, avail, **kw)
+    torch.cuda.synchronize()
+    assert ard.launches == before + 1
+    assert act.shape == logp.shape == (B, DCML.n_agent)
+    assert torch.isfinite(act).all() and torch.isfinite(logp).all()
+    ref = ard.ar_decode_plain(weights, rep, gumbel, normal, avail, return_scores=True, **kw)
+    assert ard.launches == before + 1
+    _check_decodes_agree(act, logp, *ref, DCML.n_discrete_agents)
+
+
+def test_ar_decode_rejects_what_it_cannot_run(cuda):
+    weights = ard.pack_ar_decode_weights(_dcml_model(cuda))
+    rep, gumbel, normal, avail = _decode_inputs(cuda, 2, True, True, seed=0)
+    kw = dict(n_head=DCML.n_head, adim=DCML.action_dim, nd=DCML.n_discrete_agents)
+    with pytest.raises(ValueError, match="f32 only"):
+        ard.fused_ar_decode(weights, rep.bfloat16(), gumbel, normal, avail, **kw)
+    with pytest.raises(ValueError, match="f32 only"):
+        bf16 = ard.ARDecodeWeights(*(t.bfloat16() for t in weights))
+        ard.fused_ar_decode(bf16, rep, gumbel, normal, avail, **kw)
+    with pytest.raises(ValueError, match="one device"):
+        ard.fused_ar_decode(weights, rep, gumbel.cpu(), normal, avail, **kw)
+    with pytest.raises(ValueError, match="one device"):
+        ard.fused_ar_decode(ard.ARDecodeWeights(*(t.cpu() for t in weights)), rep, gumbel,
+                            normal, avail, **kw)
+    most = ard.kernel_limits()
+    with pytest.raises(ValueError, match="at most .* heads"):
+        ard.fused_ar_decode(weights, rep, gumbel, normal, avail,
+                            **dict(kw, n_head=2 * most["heads"]))
+    long_a = most["a"] + 1
+    big = torch.zeros(1, long_a, DCML.n_embd, device=cuda)
+    with pytest.raises(ValueError, match="at most .* agents"):
+        ard.fused_ar_decode(weights, big, torch.zeros(1, long_a, 2, device=cuda),
+                            torch.zeros(1, 1, 2, device=cuda), None,
+                            **dict(kw, nd=long_a - 1))
+    with pytest.raises(ValueError, match="contiguous"):
+        ard.fused_ar_decode(weights, rep.transpose(0, 1).contiguous().transpose(0, 1), gumbel,
+                            normal, avail, **kw)
+
+
+def test_scan_serve_decode_launches_the_kernel_once(cuda):
+    model = _dcml_model(cuda)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    state = torch.randn(4, DCML.n_agent, DCML.state_dim, generator=g, device=cuda)
+    obs = torch.randn(4, DCML.n_agent, DCML.obs_dim, generator=g, device=cuda)
+    for deterministic in (True, False):
+        before, attn = ard.launches, cuda_attention.launches
+        _, res = serve_decode(model, state, obs, None, deterministic=deterministic, mode="scan",
+                              device=cuda, generator=g)
+        torch.cuda.synchronize()
+        assert ard.launches == before + 1
+        assert cuda_attention.launches == attn + DCML.n_block   # the encoder's attentions
+        assert res.action.shape == (4, DCML.n_agent, 1)

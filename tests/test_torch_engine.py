@@ -1,5 +1,5 @@
 """The port's serving stack on the CPU: ContinuousBatcher -> DecodeEngine ->
-serve_decode(mode="cached").
+serve_decode(mode="cached"), and the engine's scan and stride modes.
 
 Padded-bucket results must equal a direct ``serve_decode`` on the same rows
 exactly: the same code on the same device, so only the batch's row count
@@ -55,6 +55,22 @@ def test_batcher_padded_buckets_match_direct_decode(setup):
     assert eng.telemetry.counters["serving_requests"] == n
 
 
+@pytest.mark.parametrize("mode,stride", [("scan", 2), ("stride", 3)])
+def test_engine_decode_modes_match_serve_decode(setup, mode, stride):
+    """``EngineConfig.decode_mode`` and ``stride`` reach ``serve_decode``: a
+    bucket dispatch equals the direct decode in that mode, exactly."""
+    tcfg, model, params = setup
+    eng = DecodeEngine(params, tcfg, EngineConfig(buckets=BUCKETS, decode_mode=mode,
+                                                  stride=stride),
+                       log_fn=lambda *_: None, device="cpu")
+    state, obs, avail = inputs(tcfg, 4, seed=6)
+    act, logp = eng.decode(state, obs, avail)
+    _, direct = serve_decode(model, state, obs, avail, deterministic=True, mode=mode,
+                             stride=stride, device="cpu")
+    np.testing.assert_array_equal(act, direct.action.numpy())
+    np.testing.assert_array_equal(logp, direct.log_prob.numpy())
+
+
 def test_engine_rejects_non_bucket_batch(setup):
     tcfg, _, params = setup
     eng = _engine(tcfg, params)
@@ -95,7 +111,7 @@ def test_install_params_swaps_weights(setup):
 
 @pytest.mark.parametrize("kw,err", [
     (dict(buckets=(4, 1)), ValueError),
-    (dict(decode_mode="scan"), NotImplementedError),
+    (dict(decode_mode="spec"), NotImplementedError),
     (dict(serve_dtype="bf16"), NotImplementedError),
 ])
 def test_engine_config_rejects(kw, err):

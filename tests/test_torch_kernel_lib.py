@@ -40,6 +40,19 @@ def _calls(log):
     return log.read_text().splitlines() if log.exists() else []
 
 
+def test_build_all_builds_every_source_once(fake_toolchain):
+    src, build, log = fake_toolchain
+    for name in ("a", "b", "c"):
+        (src / f"{name}.cu").write_text(f"// {name}\n")
+    logs = kernel_lib.build_all()
+    assert sorted(logs) == ["a", "b", "c"] and all("registers" in v for v in logs.values())
+    assert len(_calls(log)) == 3
+    assert kernel_lib.build_all() == {"a": None, "b": None, "c": None}   # all cached
+    (src / "broken.cu").write_text("x\n")
+    with pytest.raises(RuntimeError, match="broken.cu"):
+        kernel_lib.build_all()
+
+
 def test_builds_each_source_once_and_caches_by_hash(fake_toolchain):
     src, build, log = fake_toolchain
     (src / "a.cu").write_text("// a\n")

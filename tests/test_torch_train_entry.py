@@ -47,6 +47,23 @@ def test_unknown_and_unported_flags_are_errors(tmp_path, capsys, flag):
     assert exc.value.code == 2 and "unrecognized arguments" in capsys.readouterr().err
 
 
+def test_scan_decode_run_writes_finite_metrics(tmp_path):
+    """``--decode_mode scan``: the rollout decodes through the whole-decode
+    path (its plain twin on the CPU)."""
+    train_dcml.main(["--device", "cpu", "--run_dir", str(tmp_path), "--decode_mode", "scan",
+                     *SMALL_RUN])
+    lines = (tmp_path / "DCML/AS/mat/check/metrics.jsonl").read_text().splitlines()
+    records = [json.loads(line) for line in lines]
+    assert [r["episode"] for r in records] == [0, 1]
+    assert all(KEYS <= set(r) and all(math.isfinite(v) for v in r.values()) for r in records)
+
+
+def test_stride_decode_cannot_train(tmp_path):
+    with pytest.raises(ValueError, match="eval-only"):
+        train_dcml.main(["--device", "cpu", "--run_dir", str(tmp_path), "--decode_mode", "stride",
+                         *SMALL_RUN])
+
+
 def test_default_device_is_the_card(tmp_path):
     argv = ["--run_dir", str(tmp_path), *SMALL_RUN]
     if torch.cuda.is_available():

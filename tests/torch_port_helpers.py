@@ -10,9 +10,11 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from mat_dcml_tpu.models.decode import serve_decode as jax_serve_decode
 from mat_dcml_tpu.models.mat import MATConfig as JaxMATConfig
 from mat_dcml_tpu.models.mat import MultiAgentTransformer as JaxMAT
 from mat_dcml_tpu_torch.bridge import params_from_jax
+from mat_dcml_tpu_torch.models.decode import serve_decode
 from mat_dcml_tpu_torch.models.mat import MATConfig, MultiAgentTransformer
 
 # DCML's obs / state / action widths, cut to 11 agents and n_embd 16
@@ -105,6 +107,55 @@ def assert_decodes_agree(act, logp, ref_act, ref_logp, ref_logits, nd, atol,
         else:
             np.testing.assert_allclose(act[b, nd:], ref_act[b, nd:], atol=atol)
         np.testing.assert_allclose(logp[b, :end], ref_logp[b, :end], atol=atol)
+
+
+def reference_logits(jcfg, params, state, obs, avail, act, gumbel):
+    """JAX teacher-forced logits under the actions ``act`` (B, A, 1): the
+    logits each decode position saw, availability and noise applied, for the
+    near-tie check."""
+    B, A = act.shape[:2]
+    jm = JaxMAT(jcfg)
+    _, rep = jm.apply(params, state, obs, method="encode")
+    sh = np.zeros((B, A, jcfg.action_input_dim), np.float32)
+    sh[:, 0, 0] = 1.0
+    idx = np.asarray(act)[:, :-1, 0].astype(int).clip(0, jcfg.action_dim - 1)
+    for i in range(1, A):
+        sh[np.arange(B), i, 1 + idx[:, i - 1]] = 1.0
+    logits = np.asarray(jm.apply(params, sh, rep, obs, method="decode_full"))
+    logits = np.where(avail == 0, -1e10, logits)
+    return logits if gumbel is None else logits + gumbel
+
+
+DECODE_KEY = 42
+
+
+def serve_decode_vs_jax(shape, deterministic, batch, mode, atol, margin=1e-5, **kw):
+    """The port's ``serve_decode(mode=...)`` against JAX's on one seeded
+    batch, the stochastic case fed the noise replayed from JAX's key chain:
+    values within ``atol``, actions and log-probs by :func:`assert_decodes_agree`.
+    Returns the port's result."""
+    jcfg, tcfg = configs(shape)
+    params = jax_params(jcfg)
+    state, obs, avail = inputs(jcfg, batch)
+    v_ref, ref = jax_serve_decode(
+        jcfg, params, jax.random.key(DECODE_KEY), state, obs, avail,
+        deterministic=deterministic, mode=mode, **kw,
+    )
+    gumbel = tail = None
+    if not deterministic:
+        gumbel, tail = replay_noise(jax.random.key(DECODE_KEY), batch, jcfg)
+    model = torch_model(tcfg, params)
+    v, res = serve_decode(
+        model, state, obs, avail, deterministic=deterministic, mode=mode, device="cpu",
+        gumbel=None if gumbel is None else torch.from_numpy(gumbel),
+        tail_noise=None if tail is None else torch.from_numpy(tail), **kw,
+    )
+    assert res.action.shape == ref.action.shape and res.log_prob.shape == ref.log_prob.shape
+    np.testing.assert_allclose(v.numpy(), np.asarray(v_ref), atol=atol)
+    logits = reference_logits(jcfg, params, state, obs, avail, ref.action, gumbel)
+    assert_decodes_agree(res.action.numpy(), res.log_prob.numpy(), ref.action,
+                         ref.log_prob, logits, jcfg.n_discrete_agents, atol, margin=margin)
+    return res
 
 
 def torch_in(*arrays):
