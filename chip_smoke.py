@@ -17,9 +17,12 @@ Phases, each printed on its own line and each fatal on failure:
    planted-fault reading far outside the tolerance, and the kernel, plain,
    library and bound times: attention_fwd (f32 and bf16, serving shapes),
    attention_bwd (the PPO update's shapes, against autograd through the plain
-   forward), and ar_decode, the whole decode, at full DCML width (B = 1, 8,
+   forward), ar_decode, the whole decode, at full DCML width (B = 1, 8,
    128; deterministic and with noise; avail masked and None; beside it the
-   cached decode's time at the same B);
+   cached decode's time at the same B), and decode_step, one decode
+   position, for both continuous families (B = 1, 8, 128; A = 10, 101;
+   positions 0, mid, last; logits and every cache; beside it the cached
+   decode step's time at the same shape);
 3. serving: the DCML MAT policy at full width (101 agents, obs 7, state 102,
    n_embd 64, 2 blocks, 2 heads, seeded random weights) served through
    ContinuousBatcher -> DecodeEngine -> serve_decode on the card, first with
@@ -35,7 +38,19 @@ Phases, each printed on its own line and each fatal on failure:
    exactly), the metrics must be finite, and one more update on the card must
    match the same update by the port on the CPU (same trajectory, weights,
    Adam state and permutations); then one iteration with
-   decode_mode="scan", whose 50 rollout decodes are 50 ar_decode launches.
+   decode_mode="scan", whose 50 rollout decodes are 50 ar_decode launches;
+6. continuous serving: MAT on multi-agent MuJoCo lite at full width
+   (manyagent_ant 10x2: 10 agents, action 8, obs 36, state 240, n_embd 64,
+   2 blocks, 2 heads; seeded random weights at O(1) scale) served through
+   the batcher and engine, cached then scan (10 decode_step launches per
+   dispatch); bucket 8 must match the port on the CPU, and scan the cached;
+7. continuous training: two MujocoRunner iterations at that configuration
+   (E = 8, T = 50, the recipe's PPO), cached then scan (500 decode_step
+   launches), launches counted exactly, and one update on the card matched
+   against the CPU port;
+8. the cache-layout probe (probes/cache_layout.py): K/V store and attention
+   in position-major against batch-major caches, and two row softmaxes,
+   each checked against plain PyTorch and timed.
 
 The last two lines of standard output are a JSON object describing each
 kernel and the result line ``{"ok": true, "device": {...}}``.  Without a
@@ -76,6 +91,13 @@ NEAR_TIE = 1e-5
 # 1e-4, worker actions equal except past a near-tie (summation order)
 AR_LOGP_TOL = 1e-4
 AR_BATCHES = (1, 8, 128)
+# decode step, kernel vs plain: logits (up to ~5 with O(1) weights) and
+# caches; f32 summation order moves them by a few 1e-6
+STEP_TOL = 2e-5
+STEP_AGENTS = (10, 101)
+# continuous served and trained: manyagent_ant 10x2 of multi-agent MuJoCo lite
+MJ_SCENARIO, MJ_CONF = "manyagent_ant", "10x2"
+CONT_ATOL_VS_CPU = 1e-4
 # training phase: the recipe (RunConfig / PPOConfig defaults)
 TRAIN_ITERS = 2
 # card vs CPU after one full update: Adam moves an entry by at most lr per
@@ -473,6 +495,136 @@ def phase2_ar_decode(torch):
     return worst, shapes
 
 
+def _mj_config(action_type="continuous", n_agent=None):
+    """MAT at the width of multi-agent MuJoCo lite's manyagent_ant 10x2, or
+    ``n_agent`` agents of it."""
+    from mat_dcml_tpu_torch.envs.mamujoco.lite import MJLiteConfig, MJLiteEnv
+    from mat_dcml_tpu_torch.models.mat import MATConfig
+
+    env = MJLiteEnv(MJLiteConfig(scenario=MJ_SCENARIO, agent_conf=MJ_CONF), device="cpu")
+    return MATConfig(n_agent=n_agent or env.n_agents, obs_dim=env.obs_dim,
+                     state_dim=env.share_obs_dim, action_dim=env.action_dim, n_block=2,
+                     n_embd=64, n_head=2, action_type=action_type)
+
+
+def _step_bound(cfg, weights, B, i):
+    """Least time for one decode position on this card: the weights read
+    once, per row x_in, rep, the cached K/V of positions 0 .. i - 1 read and
+    position i's written, and the logits; against per row 2 (in_dim D + 10
+    n_block D^2 + D^2 + D adim) flops of products and 8 n_block D (i + 1) of
+    attention."""
+    D, nb, adim, in_dim = cfg.n_embd, cfg.n_block, cfg.action_dim, cfg.action_input_dim
+    nbytes = 4 * (sum(t.numel() for t in weights)
+                  + B * (in_dim + D + adim + 4 * nb * D * (i + 1)))
+    flops = B * (2 * (in_dim * D + 10 * nb * D * D + D * D + D * adim) + 8 * nb * D * (i + 1))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase2_decode_step(torch):
+    """decode_step against its plain twin for both continuous families at the
+    MuJoCo width (A = 10) and at 101 agents, a planted fault, and the
+    kernel's, the plain twin's and the cached decode step's times; beside
+    them a whole continuous decode's time, scan (A launches) and cached."""
+    from mat_dcml_tpu_torch.models.decode import ar_decode, cached_decode
+    from mat_dcml_tpu_torch.ops import decode_step as dst
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    worst, shapes = 0.0, {}
+    with torch.no_grad():
+        for family in ("continuous", "available_continuous"):
+            for A in STEP_AGENTS:
+                cfg = _mj_config(family, A)
+                D, nb, adim = cfg.n_embd, cfg.n_block, cfg.action_dim
+                model = _scaled_model(torch, cfg, SEED + 6)
+                weights = dst.pack_decode_weights(model)
+                for B in AR_BATCHES:
+                    caches = dst.decode_caches(nb, A, B, D, dev)
+                    caches.copy_(torch.randn(caches.shape, generator=g, device=dev))
+                    x_in = torch.randn(B, cfg.action_input_dim, generator=g, device=dev)
+                    rep = torch.randn(B, A, D, generator=g, device=dev)
+                    for i in (0, A // 2, A - 1):
+                        mine, ref = caches.clone(), caches.clone()
+                        out = dst.fused_decode_step(weights, x_in, rep[:, i], mine, i,
+                                                    n_head=cfg.n_head, adim=adim)
+                        torch.cuda.synchronize()
+                        want = dst.decode_step_plain(weights, x_in, rep[:, i], ref, i,
+                                                     n_head=cfg.n_head, adim=adim)
+                        err = max((out - want).abs().max().item(),
+                                  (mine - ref).abs().max().item())
+                        worst = max(worst, err)
+                        say(f"[phase 2] decode_step {family} A {A} B {B} i {i}: max|kernel - "
+                            f"plain| over logits and {4 * nb} caches {err:.3g} (tol {STEP_TOL})")
+                        if not err <= STEP_TOL:
+                            raise AssertionError(f"decode_step {family} A {A} B {B} i {i}: "
+                                                 f"error {err} > {STEP_TOL}")
+        # what the check must catch: the plain twin with the self-attention
+        # key of agent mid replaced by the one before it (A = 10, B = 8, last)
+        cfg = _mj_config()
+        D, nb, A, adim = cfg.n_embd, cfg.n_block, cfg.n_agent, cfg.action_dim
+        model = _scaled_model(torch, cfg, SEED + 6)
+        weights = dst.pack_decode_weights(model)
+        kw = dict(n_head=cfg.n_head, adim=adim)
+        caches = dst.decode_caches(nb, A, 8, D, dev)
+        caches.copy_(torch.randn(caches.shape, generator=g, device=dev))
+        x_in = torch.randn(8, cfg.action_input_dim, generator=g, device=dev)
+        rep = torch.randn(8, A, D, generator=g, device=dev)
+        faulty = caches.clone()
+        faulty[0, A // 2] = caches[0, A // 2 - 1]
+        ref = dst.decode_step_plain(weights, x_in, rep[:, A - 1], caches.clone(), A - 1, **kw)
+        bad = dst.decode_step_plain(weights, x_in, rep[:, A - 1], faulty, A - 1, **kw)
+        fault = (bad - ref).abs().max().item()
+        say(f"[phase 2] decode_step planted fault (agent {A // 2}'s cached key replaced, B 8): "
+            f"max|logits diff| {fault:.3g} (tol {STEP_TOL})")
+        if not fault >= 10 * STEP_TOL:
+            raise AssertionError(f"decode_step tolerance would pass a replaced key ({fault})")
+
+        # times at the served and trained shape: A = 10, the last position
+        i = A - 1
+        valid = torch.arange(A, device=dev) <= i
+        for B in AR_BATCHES:
+            caches = dst.decode_caches(nb, A, B, D, dev)
+            caches.copy_(torch.randn(caches.shape, generator=g, device=dev))
+            x_in = torch.randn(B, cfg.action_input_dim, generator=g, device=dev)
+            rep = torch.randn(B, A, D, generator=g, device=dev)
+            ms, eager_ms = _time_ms(torch, lambda: dst.fused_decode_step(
+                weights, x_in, rep[:, i], caches, i, **kw))
+            plain_ms, plain_eager_ms = _time_ms(torch, lambda: dst.decode_step_plain(
+                weights, x_in, rep[:, i], caches, i, **kw), iters=20)
+            kv = model.fresh_packed_cache(B)
+            q2 = model.decode_queries(rep)
+            ms_cached, cached_eager_ms = _time_ms(torch, lambda: model.decode_step_cached(
+                x_in[:, None], rep[:, i:i + 1], q2[:, :, :, i:i + 1], kv, i, valid), iters=20)
+            bound_ms, bound_by = _step_bound(cfg, weights, B, i)
+            # a whole stochastic decode of the A positions: A launches and the
+            # sampling between them (scan), against the cached decode
+            tail = torch.randn(A, B, adim, generator=g, device=dev)
+            dec_ms, dec_eager_ms = _time_ms(torch, lambda: ar_decode(
+                model, rep, None, False, tail_noise=tail), iters=20)
+            cdec_ms, cdec_eager_ms = _time_ms(torch, lambda: cached_decode(
+                model, rep, None, False, tail_noise=tail), iters=5)
+            shapes[B] = {"shape": f"B {B}, A {A}, D {D}, in_dim {cfg.action_input_dim}, adim "
+                                  f"{adim}, position {i}, f32",
+                         "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+                         "plain_eager_ms": plain_eager_ms, "cached_step_ms": ms_cached,
+                         "cached_step_eager_ms": cached_eager_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "scan_decode_ms": dec_ms,
+                         "scan_decode_eager_ms": dec_eager_ms, "cached_decode_ms": cdec_ms,
+                         "cached_decode_eager_ms": cdec_eager_ms}
+            say(f"[phase 2] time decode_step B {B} A {A} i {i}, device (eager) per call: kernel "
+                f"{ms * 1e3:.2f} ({eager_ms * 1e3:.2f}) us, plain {plain_ms * 1e3:.2f} "
+                f"({plain_eager_ms * 1e3:.2f}) us, cached decode step {ms_cached * 1e3:.2f} "
+                f"({cached_eager_ms * 1e3:.2f}) us, bound {bound_ms * 1e3:.3f} us ({bound_by}); "
+                f"L2-warm")
+            say(f"[phase 2] time whole continuous decode B {B} A {A}, device (eager) per call: "
+                f"scan {dec_ms:.3f} ({dec_eager_ms:.3f}) ms, cached {cdec_ms:.3f} "
+                f"({cdec_eager_ms:.3f}) ms")
+    torch.cuda.synchronize()
+    return worst, shapes
+
+
 def _dcml_config():
     from mat_dcml_tpu_torch.envs.dcml.constants import DCMLConsts
     from mat_dcml_tpu_torch.models.mat import SEMI_DISCRETE, MATConfig
@@ -497,6 +649,15 @@ def _requests(cfg, n, seed):
 def _check_actions(cfg, act, logp):
     import numpy as np
 
+    from mat_dcml_tpu_torch.models.decode import CONTINUOUS_FAMILIES
+
+    if cfg.action_type in CONTINUOUS_FAMILIES:
+        want = (cfg.n_agent, cfg.act_out_dim), (cfg.n_agent, cfg.act_prob_dim)
+        if act.shape[-2:] != want[0] or logp.shape[-2:] != want[1]:
+            raise AssertionError(f"action {act.shape} / log-prob {logp.shape}, want {want}")
+        if not (np.isfinite(act).all() and np.isfinite(logp).all()):
+            raise AssertionError("non-finite continuous action or log-prob")
+        return
     nd = cfg.n_discrete_agents
     if act.shape[-2:] != (cfg.n_agent, 1) or logp.shape != act.shape:
         raise AssertionError(f"action {act.shape} / log-prob {logp.shape}")
@@ -543,25 +704,28 @@ def _match_bucket8(torch, cfg, params, engines):
             f"rows diverging at a near-tie: {flips}")
 
 
-def phase3_serve(torch, params, mode):
-    """Serve the 96 requests through batcher -> engine(decode_mode=mode);
-    returns ``(engine, batcher, (attention_fwd launches, ar_decode
-    launches))``."""
+def phase3_serve(torch, params, mode, cfg=None, tag="phase 3"):
+    """Serve the 96 requests through batcher -> engine(decode_mode=mode),
+    with the DCML policy or the one of ``cfg``; returns ``(engine, batcher,
+    (attention_fwd, ar_decode, decode_step launches))``."""
     import numpy as np
 
+    from mat_dcml_tpu_torch.models.decode import CONTINUOUS_FAMILIES
     from mat_dcml_tpu_torch.ops import ar_decode as ard
     from mat_dcml_tpu_torch.ops import cuda_attention as ca
+    from mat_dcml_tpu_torch.ops import decode_step as dst
     from mat_dcml_tpu_torch.serving.batcher import BatcherConfig, ContinuousBatcher
     from mat_dcml_tpu_torch.serving.engine import DecodeEngine, EngineConfig
 
-    cfg = _dcml_config()
+    cfg = cfg or _dcml_config()
+    continuous = cfg.action_type in CONTINUOUS_FAMILIES
     engine = DecodeEngine(params, cfg, EngineConfig(buckets=BUCKETS, decode_mode=mode),
-                          log_fn=lambda m: say(f"[phase 3] {mode}: {m}"))
+                          log_fn=lambda m: say(f"[{tag}] {mode}: {m}"))
     if engine.device.type != "cuda":
         raise AssertionError(f"engine defaulted to {engine.device}")
     engine.warmup()
     batcher = ContinuousBatcher(engine, BatcherConfig(max_batch_wait_ms=5.0),
-                                log_fn=lambda m: say(f"[phase 3] {mode}: {m}"))
+                                log_fn=lambda m: say(f"[{tag}] {mode}: {m}"))
 
     n_req = N_CLIENTS * REQUESTS_PER_CLIENT
     state, obs, avail = _requests(cfg, n_req, seed=SEED)
@@ -589,7 +753,7 @@ def phase3_serve(torch, params, mode):
             errors.append(repr(e))
 
     dispatch_before = dict(engine.dispatch_counts)
-    ca.launches = ard.launches = 0
+    ca.launches = ard.launches = dst.launches = 0
     t0 = time.perf_counter()
     clients = [threading.Thread(target=client, args=(c,), name=f"client-{c}") for c in range(N_CLIENTS)]
     for t in clients:
@@ -597,20 +761,24 @@ def phase3_serve(torch, params, mode):
     for t in clients:
         t.join(timeout=600)
     wall = time.perf_counter() - t0
-    launches = (ca.launches, ard.launches)
+    launches = (ca.launches, ard.launches, dst.launches)
     torch.cuda.synchronize()
     if errors or any(t.is_alive() for t in clients):
         raise AssertionError(f"clients failed: {errors[:3]}")
     dispatches = {b: engine.dispatch_counts[b] - dispatch_before[b] for b in BUCKETS}
     n_dispatch = sum(dispatches.values())
     # per dispatch: the encoder's attentions, then either 2 per block and
-    # position (cached) or the one whole-decode launch (scan)
+    # position (cached), or the one whole-decode launch (scan, discrete) or
+    # one decode-step launch a position (scan, continuous)
     nb, A = cfg.n_block, cfg.n_agent
-    per = (nb + A * 2 * nb, 0) if mode == "cached" else (nb, 1)
-    say(f"[phase 3] {mode}: served {n_req} requests from {N_CLIENTS} clients in {n_dispatch} "
-        f"dispatches { {b: n for b, n in dispatches.items() if n} }; attention_fwd launches "
-        f"{launches[0]}, ar_decode launches {launches[1]} (expected {per} per dispatch)")
-    if launches != (per[0] * n_dispatch, per[1] * n_dispatch) or n_dispatch == 0:
+    if mode == "cached":
+        per = (nb + A * 2 * nb, 0, 0)
+    else:
+        per = (nb, 0, A) if continuous else (nb, 1, 0)
+    say(f"[{tag}] {mode}: served {n_req} requests from {N_CLIENTS} clients in {n_dispatch} "
+        f"dispatches { {b: n for b, n in dispatches.items() if n} }; attention_fwd / ar_decode "
+        f"/ decode_step launches {launches} (expected {per} per dispatch)")
+    if launches != tuple(p * n_dispatch for p in per) or n_dispatch == 0:
         raise AssertionError(f"expected {per} launches per dispatch, got {launches} for "
                              f"{n_dispatch}")
     # the batcher stayed on its normal path: no failed bucket dispatch
@@ -628,10 +796,12 @@ def phase3_serve(torch, params, mode):
     logp = np.stack([r[1] for r in results])
     _check_actions(cfg, act, logp)
     lat = np.asarray(lat_ms)
-    say(f"[phase 3] {mode}: {n_req / wall:.2f} requests/s; latency p50 "
+    what = (f"actions mean {act.mean():.4f}, std {act.std():.4f}" if continuous else
+            f"worker actions mean {act[:, :-1].mean():.3f}, coding ratio mean "
+            f"{act[:, -1].mean():.4f}")
+    say(f"[{tag}] {mode}: {n_req / wall:.2f} requests/s; latency p50 "
         f"{np.percentile(lat, 50):.2f} ms, p99 {np.percentile(lat, 99):.2f} ms; engine decode "
-        f"p50 {engine.telemetry.hists['serving_decode_ms'].quantile(0.5):.2f} ms; worker "
-        f"actions mean {act[:, :-1].mean():.3f}, coding ratio mean {act[:, -1].mean():.4f}")
+        f"p50 {engine.telemetry.hists['serving_decode_ms'].quantile(0.5):.2f} ms; {what}")
     torch.cuda.synchronize()
     return engine, batcher, launches
 
@@ -664,7 +834,7 @@ def _to_cpu(x):
     return type(x)(*(_to_cpu(v) if isinstance(v, tuple) else v.cpu() for v in x))
 
 
-def _match_cpu_update(torch, runner, ppo, train_state, rollout_state):
+def _match_cpu_update(torch, runner, ppo, train_state, rollout_state, tag="phase 5"):
     """One more collect on the card, then the same PPO update on the card
     and by the port on the CPU from copies of the trajectory, weights, Adam
     state, ValueNorm and permutations.  Returns the card update's launches."""
@@ -713,7 +883,7 @@ def _match_cpu_update(torch, runner, ppo, train_state, rollout_state):
     # it is held to the same bound as every other weight, and a backward
     # whose dk error is constant along a row (which only these biases see)
     # fails it
-    say(f"[phase 5] one update ({steps} Adam steps) card vs CPU port: max|weight diff| "
+    say(f"[{tag}] one update ({steps} Adam steps) card vs CPU port: max|weight diff| "
         f"{diff:.3g} (tol {UPDATE_TOL_FRACTION} x lr x steps = {tol:.3g}), of which key_p "
         f"biases {key_bias_diff:.3g}; the update moved weights by up to {moved:.3g}; "
         f"card {card_s:.2f}s, CPU {cpu_s:.2f}s")
@@ -727,7 +897,7 @@ def _match_cpu_update(torch, runner, ppo, train_state, rollout_state):
         rtol = 1e-2 if name == "update_ratio" else METRIC_RTOL
         if not (np.isfinite(a) and abs(a - b) <= 1e-6 + rtol * abs(b)):
             raise AssertionError(f"metric {name}: card {a} vs CPU {b}")
-    say(f"[phase 5] metrics card vs CPU within rtol {METRIC_RTOL}: "
+    say(f"[{tag}] metrics card vs CPU within rtol {METRIC_RTOL}: "
         + ", ".join(f"{n} {float(getattr(met, n)):.6g}/{float(getattr(cmet, n)):.6g}"
                     for n in ("value_loss", "policy_loss", "dist_entropy", "grad_norm")))
     return launches
@@ -827,6 +997,116 @@ def phase5_scan_iteration(torch, cached_records):
     return launches, record
 
 
+def _match_continuous_bucket8(torch, cfg, params, engines, tag):
+    """A bucket-8 decode by each continuous engine on the card against the
+    port on the CPU in the same mode, and scan against cached on the card:
+    actions and log-probs within CONT_ATOL_VS_CPU (a deterministic
+    continuous decode takes means: no draw can flip)."""
+    import numpy as np
+
+    from mat_dcml_tpu_torch.serving.engine import DecodeEngine, EngineConfig
+
+    state, obs, avail = _requests(cfg, 8, seed=SEED + 1)
+    card = {mode: eng.decode(state, obs, avail) for mode, eng in engines.items()}
+    cpu = {mode: DecodeEngine(params, cfg, EngineConfig(buckets=(8,), decode_mode=mode),
+                              device="cpu", log_fn=lambda *_: None).decode(state, obs, avail)
+           for mode in engines}
+    pairs = [(f"{mode} card vs CPU", card[mode], cpu[mode]) for mode in engines]
+    pairs.append(("scan vs cached, card", card["scan"], card["cached"]))
+    for what, (act, logp), (r_act, r_logp) in pairs:
+        err = max(float(np.abs(act - r_act).max()), float(np.abs(logp - r_logp).max()))
+        say(f"[{tag}] bucket 8 {what}: max|action, logp diff| {err:.3g} "
+            f"(tol {CONT_ATOL_VS_CPU})")
+        if not err <= CONT_ATOL_VS_CPU:
+            raise AssertionError(f"continuous bucket 8 {what}: {err} > {CONT_ATOL_VS_CPU}")
+
+
+def phase6_continuous_serving(torch):
+    """The continuous MuJoCo policy served in cached then scan mode; returns
+    ``{mode: (attention_fwd, ar_decode, decode_step) launches}``."""
+    cfg = _mj_config()
+    params = _scaled_model(torch, cfg, SEED + 7).cpu().state_dict()
+    say(f"[phase 6] {MJ_SCENARIO} {MJ_CONF}: {cfg.n_agent} agents, action {cfg.action_dim}, obs "
+        f"{cfg.obs_dim}, state {cfg.state_dim}, n_embd {cfg.n_embd}, {cfg.n_block} blocks, "
+        f"{cfg.n_head} heads, {cfg.action_type}")
+    engines, launches = {}, {}
+    for mode in ("cached", "scan"):
+        engines[mode], batcher, launches[mode] = phase3_serve(torch, params, mode, cfg,
+                                                              tag="phase 6")
+        phase4_close(torch, batcher)
+    _match_continuous_bucket8(torch, cfg, params, engines, "phase 6")
+    return launches
+
+
+def phase7_mujoco_training(torch):
+    """Two MujocoRunner iterations at manyagent_ant 10x2 (E = 8, T = 50, the
+    recipe's PPO), cached with a card-vs-CPU update check, then scan;
+    returns ``{mode: (attention_fwd, attention_bwd, decode_step)}``."""
+    import math
+    import tempfile
+
+    from mat_dcml_tpu_torch.config import RunConfig
+    from mat_dcml_tpu_torch.envs.mamujoco.lite import MJLiteConfig
+    from mat_dcml_tpu_torch.ops import cuda_attention as ca
+    from mat_dcml_tpu_torch.ops import decode_step as dst
+    from mat_dcml_tpu_torch.training.mujoco_runner import MujocoRunner
+    from mat_dcml_tpu_torch.training.ppo import PPOConfig
+
+    ppo = PPOConfig()
+    launches = {}
+    for mode in ("cached", "scan"):
+        with tempfile.TemporaryDirectory() as run_dir:
+            run = RunConfig(env_name="mujoco", scenario=f"{MJ_SCENARIO}_{MJ_CONF}", seed=SEED,
+                            log_interval=1, run_dir=run_dir, decode_mode=mode)
+            runner = MujocoRunner(run, ppo, MJLiteConfig(scenario=MJ_SCENARIO, agent_conf=MJ_CONF,
+                                                         episode_length=run.episode_length),
+                                  log_fn=lambda m: say(f"[phase 7] {mode}: {m}"))
+            if runner.device.type != "cuda":
+                raise AssertionError(f"runner defaulted to {runner.device}")
+            cfg = runner.policy.cfg
+            train_state, rollout_state = runner.setup()
+            torch.cuda.synchronize()
+            ca.launches = ca.bwd_launches = dst.launches = 0
+            train_state, rollout_state = runner.train_loop(1, train_state, rollout_state)
+            torch.cuda.synchronize()
+            launches[mode] = (ca.launches, ca.bwd_launches, dst.launches)
+            record = runner.records[0]
+            _, _, upd_fwd, upd_bwd = _expected_launches(cfg, run, ppo, 1)
+            nb, A, T = cfg.n_block, cfg.n_agent, run.episode_length
+            collect = (T * (nb + A * 2 * nb), 0) if mode == "cached" else (T * nb, T * A)
+            want = (collect[0] + upd_fwd, upd_bwd, collect[1])
+            it = record["step_time_collect"] + record["step_time_train"]
+            say(f"[phase 7] {mode} iteration ({cfg.n_agent} agents, action {cfg.action_dim}, E "
+                f"{run.n_rollout_threads}, T {T}): collect {record['step_time_collect']:.3f}s, "
+                f"update {record['step_time_train']:.3f}s ({record['step_time_train'] / it:.1%} of "
+                f"{it:.3f}s), fps {record['fps']:.1f}; avg_r {record['average_step_rewards']:.4f}, "
+                f"value_loss {record['value_loss']:.4f}, policy_loss {record['policy_loss']:.3g}, "
+                f"entropy {record['dist_entropy']:.4f}; attention_fwd / attention_bwd / "
+                f"decode_step launches {launches[mode]} (expected {want})")
+            if launches[mode] != want:
+                raise AssertionError(f"{mode} iteration launched {launches[mode]}, expected {want}")
+            if not all(math.isfinite(v) for v in record.values()):
+                raise AssertionError(f"{mode} iteration metrics not finite: {record}")
+            if mode == "cached":
+                card = _match_cpu_update(torch, runner, ppo, train_state, rollout_state,
+                                         tag="phase 7")
+                if card != (upd_fwd, upd_bwd):
+                    raise AssertionError(f"one update launched {card}, expected "
+                                         f"{(upd_fwd, upd_bwd)}")
+    torch.cuda.synchronize()
+    return launches
+
+
+def phase8_probe(torch):
+    """The cache-layout probe; returns ``(rows, verdicts, launches)``."""
+    from mat_dcml_tpu_torch.probes import cache_layout
+
+    cache_layout.launches = 0
+    rows, verdicts = cache_layout.run(log=lambda m: say(f"[phase 8] {m}"))
+    torch.cuda.synchronize()
+    return rows, verdicts, cache_layout.launches
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(BUDGET_S, exit=True)
     t_start = time.perf_counter()
@@ -844,6 +1124,7 @@ def main() -> int:
     errs, shapes = phase2_kernels(torch)
     bwd_errs, bwd_shapes = phase2_backward(torch)
     ar_err, ar_shapes = phase2_ar_decode(torch)
+    step_err, step_shapes = phase2_decode_step(torch)
     from mat_dcml_tpu_torch.models.mat import MultiAgentTransformer
 
     params = MultiAgentTransformer(
@@ -855,12 +1136,19 @@ def main() -> int:
     _match_bucket8(torch, _dcml_config(), params, engines)
     train_fwd, train_bwd, records = phase5_training(torch)
     (scan_fwd, scan_bwd, scan_ar), _ = phase5_scan_iteration(torch, records)
+    cont_serve = phase6_continuous_serving(torch)
+    mj_train = phase7_mujoco_training(torch)
+    probe_rows, probe_verdicts, probe_launches = phase8_probe(torch)
 
     dec = shapes["decode"]
     f32_err = max(e for (_, dt), e in errs.items() if dt == "float32")
     bf16_err = max(e for (_, dt), e in errs.items() if dt == "bfloat16")
     fwd_paths = {"serving_cached": serve["cached"][0], "serving_scan": serve["scan"][0],
-                 "training_cached": train_fwd, "training_scan": scan_fwd}
+                 "training_cached": train_fwd, "training_scan": scan_fwd,
+                 "serving_continuous_cached": cont_serve["cached"][0],
+                 "serving_continuous_scan": cont_serve["scan"][0],
+                 "training_mujoco_cached": mj_train["cached"][0],
+                 "training_mujoco_scan": mj_train["scan"][0]}
     fwd_kernel = {
         "name": "attention_fwd",
         "route": "cuda",
@@ -881,9 +1169,12 @@ def main() -> int:
         "route": "cuda",
         "source": "mat_dcml_tpu_torch/csrc/attention_bwd.cu",
         "replaces": "mat_dcml_tpu/ops/pallas_attention.py:153",
-        "launches": train_bwd + scan_bwd,
+        "launches": train_bwd + scan_bwd + mj_train["cached"][1] + mj_train["scan"][1],
         "launches_by_path": {"serving_cached": 0, "serving_scan": 0,
-                             "training_cached": train_bwd, "training_scan": scan_bwd},
+                             "training_cached": train_bwd, "training_scan": scan_bwd,
+                             "serving_continuous_cached": 0, "serving_continuous_scan": 0,
+                             "training_mujoco_cached": mj_train["cached"][1],
+                             "training_mujoco_scan": mj_train["scan"][1]},
         "max_abs_err": max(e for (_, dt), e in bwd_errs.items() if dt == "float32"),
         "ms": enc["ms"], "plain_ms": enc["plain_ms"], "bound_ms": enc["bound_ms"],
         "bound_by": enc["bound_by"], "library_ms": enc["library_ms"],
@@ -899,7 +1190,10 @@ def main() -> int:
         "replaces": "mat_dcml_tpu/ops/pallas_decode.py:595",
         "launches": serve["scan"][1] + scan_ar,
         "launches_by_path": {"serving_cached": serve["cached"][1], "serving_scan": serve["scan"][1],
-                             "training_cached": 0, "training_scan": scan_ar},
+                             "training_cached": 0, "training_scan": scan_ar,
+                             "serving_continuous_cached": cont_serve["cached"][1],
+                             "serving_continuous_scan": cont_serve["scan"][1],
+                             "training_mujoco_cached": 0, "training_mujoco_scan": 0},
         "max_abs_err": ar_err,
         "ms": at8["ms"], "plain_ms": at8["plain_ms"], "bound_ms": at8["bound_ms"],
         "bound_by": at8["bound_by"], "library_ms": None,
@@ -908,9 +1202,49 @@ def main() -> int:
         "cached_decode_ms": at8["cached_decode_ms"],
         "shapes": {f"B={b}": v for b, v in ar_shapes.items()},
     }
+    step_paths = {"serving_cached": 0, "serving_scan": 0, "training_cached": 0,
+                  "training_scan": 0,
+                  "serving_continuous_cached": cont_serve["cached"][2],
+                  "serving_continuous_scan": cont_serve["scan"][2],
+                  "training_mujoco_cached": mj_train["cached"][2],
+                  "training_mujoco_scan": mj_train["scan"][2]}
+    st8 = step_shapes[8]
+    step_kernel = {
+        "name": "decode_step",
+        "route": "cuda",
+        "source": "mat_dcml_tpu_torch/csrc/decode_step.cu",
+        "replaces": "mat_dcml_tpu/ops/pallas_decode.py:678",
+        "launches": sum(step_paths.values()),
+        "launches_by_path": step_paths,
+        "max_abs_err": step_err,
+        "ms": st8["ms"], "plain_ms": st8["plain_ms"], "bound_ms": st8["bound_ms"],
+        "bound_by": st8["bound_by"], "library_ms": None,
+        "timed_at": "B=8 (the rollout's batch), A=10, the last position",
+        "max_abs_err_of": "logits and caches",
+        "cached_step_ms": st8["cached_step_ms"],
+        "shapes": {f"B={b}": v for b, v in step_shapes.items()},
+    }
+    attend8 = {r["variant"]: r for r in probe_rows if r["question"] == "attend" and r["B"] == 8}
+    probe_at = attend8["batch_major"]
+    probe_kernel = {
+        "name": "cache_layout_probe",
+        "route": "cuda",
+        "source": "mat_dcml_tpu_torch/csrc/cache_layout_probe.cu",
+        "replaces": "scripts/mosaic_probe.py:105",
+        # a measurement tool: no path of the system launches it
+        "launches": probe_launches,
+        "launches_by_path": {**dict.fromkeys(step_paths, 0), "probe": probe_launches},
+        "max_abs_err": max(r["max_abs_err"] for r in probe_rows),
+        "ms": probe_at["ms"], "plain_ms": probe_at["plain_ms"],
+        "bound_ms": probe_at["bound_ms"], "bound_by": probe_at["bound_by"],
+        "library_ms": probe_at["library_ms"],
+        "timed_at": "attend, batch-major caches, B=8 (library: causal SDPA)",
+        "verdicts": probe_verdicts,
+        "rows": probe_rows,
+    }
     say(f"[done] {time.perf_counter() - t_start:.1f}s wall")
     say(card)   # as nvidia-smi gives it: name, power limit
-    say(json.dumps({"kernels": [fwd_kernel, bwd_kernel, ar_kernel]}))
+    say(json.dumps({"kernels": [fwd_kernel, bwd_kernel, ar_kernel, step_kernel, probe_kernel]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -60,10 +60,22 @@ def _add_dataclass_args(parser: argparse.ArgumentParser, dc) -> None:
 
 def parse_cli(argv=None) -> tuple[RunConfig, PPOConfig]:
     """Strict CLI over :class:`RunConfig` and :class:`PPOConfig`."""
-    run, ppo = RunConfig(), PPOConfig()
-    parser = argparse.ArgumentParser(description="mat_dcml_tpu_torch trainer", allow_abbrev=False)
+    run, ppo, _ = parse_cli_with_extras(argv)
+    return run, ppo
+
+
+def parse_cli_with_extras(argv=None, extras: argparse.ArgumentParser | None = None,
+                          overrides: dict | None = None):
+    """:func:`parse_cli` plus an entry point's own flags (``extras``, a
+    parser built with ``add_help=False``) and its own defaults for run
+    fields (``overrides``), as ``mat_dcml_tpu/config.py::parse_cli_with_extras``.
+    Returns ``(run, ppo, namespace)``; unknown flags raise."""
+    run, ppo = dataclasses.replace(RunConfig(), **(overrides or {})), PPOConfig()
+    parser = argparse.ArgumentParser(description="mat_dcml_tpu_torch trainer", allow_abbrev=False,
+                                     parents=[] if extras is None else [extras])
     _add_dataclass_args(parser, run)
     _add_dataclass_args(parser, ppo)
     ns = parser.parse_args(argv)  # strict: unknown flags raise
     return (RunConfig(**{f.name: getattr(ns, f.name) for f in dataclasses.fields(RunConfig)}),
-            PPOConfig(**{f.name: getattr(ns, f.name) for f in dataclasses.fields(PPOConfig)}))
+            PPOConfig(**{f.name: getattr(ns, f.name) for f in dataclasses.fields(PPOConfig)}),
+            ns)

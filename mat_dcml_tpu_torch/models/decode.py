@@ -2,13 +2,24 @@
 decode and the teacher-forced evaluation of the PPO update.
 
 Port of ``mat_dcml_tpu/models/decode.py`` for ``mode="cached"`` (the serving
-and rollout default), ``mode="scan"`` (:func:`ar_decode`, the whole decode in
-one launch of ``csrc/ar_decode.cu`` on the card), ``mode="stride"`` and
-``parallel_act``.  In the cached decode the JAX ``lax.scan`` over agents
-becomes a Python loop over positions; the packed K/V cache is written in
-place.  Sampling noise is an input (Gumbel for categorical draws, standard
-normals for the Gaussian tail), drawn from the caller's ``torch.Generator``
-when not given, so a test can replay the JAX key chain exactly.
+and rollout default), ``mode="scan"`` (:func:`ar_decode`: for the discrete
+families the whole decode in one launch of ``csrc/ar_decode.cu`` on the card,
+for the continuous ones one launch of ``csrc/decode_step.cu`` per position),
+``mode="stride"`` and ``parallel_act``, for all four action families
+(``stride`` for the discrete ones only, as in JAX).  In the cached decode the
+JAX ``lax.scan`` over agents becomes a Python loop over positions; the packed
+K/V cache is written in place.  Sampling noise is an input (Gumbel for
+categorical draws, standard normals for the Gaussian parts), drawn from the
+caller's ``torch.Generator`` when not given, so a test can replay the JAX key
+chain exactly.
+
+Noise per family (:func:`noise_shapes`): ``gumbel (B, A, adim)`` for the
+discrete and semi-discrete draws, ``(B, A, discrete_dim)`` for the one-hot of
+``available_continuous``; ``tail_noise (A, B, adim)`` for the semi-discrete
+tail and for ``continuous``, ``(A, B, adim - discrete_dim)`` for the Gaussian
+part of ``available_continuous``.  Row ``i`` of each is what JAX draws at
+position ``i`` from ``k_d`` and ``k_c`` of ``key, k_d, k_c = split(key, 3)``,
+at the same shapes.
 """
 
 from __future__ import annotations
@@ -27,11 +38,14 @@ from mat_dcml_tpu_torch.models.mat import (
 )
 from mat_dcml_tpu_torch.ops import distributions as D
 from mat_dcml_tpu_torch.ops.ar_decode import fused_ar_decode, pack_ar_decode_weights
+from mat_dcml_tpu_torch.ops.decode_step import decode_caches, fused_decode_step, pack_decode_weights
+
+CONTINUOUS_FAMILIES = (CONTINUOUS, AVAILABLE_CONTINUOUS)
 
 
 class DecodeResult(NamedTuple):
-    action: torch.Tensor      # (B, n_agent, act_out) float32
-    log_prob: torch.Tensor    # (B, n_agent, act_prob) float32
+    action: torch.Tensor      # (B, n_agent, act_out_dim) float32
+    log_prob: torch.Tensor    # (B, n_agent, act_prob_dim) float32
 
 
 DECODE_MODES = ("scan", "stride", "spec", "cached")
@@ -58,9 +72,10 @@ def serve_decode(
     are moved to ``device`` (default ``cuda``), where ``model`` must live.
 
     ``mode``: ``"cached"`` = :func:`cached_decode`; ``"scan"`` =
-    :func:`ar_decode`, the same exact decode in one kernel launch on the
-    card; ``"stride"`` = :func:`stride_decode`, the reference's block-commit
-    approximation, deterministic only (``deterministic=False`` raises).
+    :func:`ar_decode`, the same exact decode through the decode kernels on
+    the card; ``"stride"`` = :func:`stride_decode`, the reference's
+    block-commit approximation, discrete families and deterministic only
+    (``deterministic=False`` raises).
     ``"spec"`` is not ported yet.  Both exact modes read the same noise.
     Returns ``(values, DecodeResult)``.
     """
@@ -110,9 +125,10 @@ def _discrete_branch(logits, ava_i, gumbel_i, deterministic, adim, in_dim):
 
 
 def _sample_position(cfg, logits, ava_i, i, gumbel_i, noise_i, std, deterministic):
-    """Sampling at position ``i`` from its ``(B, adim)`` logits; returns
-    ``(act, logp, nxt)`` with ``nxt`` the next step's shifted-action feed
-    ``(B, 1, action_input_dim)``."""
+    """Sampling at position ``i`` from its ``(B, adim)`` logits (JAX
+    ``_sample_position``); returns ``(act, logp, nxt)`` with ``nxt`` the next
+    step's shifted-action feed ``(B, 1, action_input_dim)``.  ``gumbel_i`` and
+    ``noise_i`` are row ``i`` of the family's noise (module docstring)."""
     adim, in_dim = cfg.action_dim, cfg.action_input_dim
     if cfg.action_type == DISCRETE:
         return _discrete_branch(logits, ava_i, gumbel_i, deterministic, adim, in_dim)
@@ -124,10 +140,34 @@ def _sample_position(cfg, logits, ava_i, i, gumbel_i, noise_i, std, deterministi
         c_logp = D.normal_log_prob(logits, std, c_act)
         # the continuous agents come last: their feed is the discrete branch's
         return c_act[:, -1:], c_logp[:, -1:], nxt
-    raise NotImplementedError(
-        f"sampling for action_type {cfg.action_type!r} is not ported yet "
-        "(ROADMAP.md queue 1, item 4)"
-    )
+    if cfg.action_type == CONTINUOUS:
+        act = logits if deterministic else D.normal_sample_from_noise(logits, std, noise_i)
+        return act, D.normal_log_prob(logits, std, act), act[:, None, :]
+    # AVAILABLE_CONTINUOUS (transformer_act.py:244-283): a one-hot over the
+    # first dd dims, a Gaussian over the rest; the feed is [0, one-hot, c_act]
+    dd = cfg.discrete_dim
+    d_logits = D.mask_logits(logits[:, :dd], None if ava_i is None else ava_i[:, :dd])
+    d_idx = (D.categorical_mode(d_logits) if deterministic
+             else D.categorical_sample_from_gumbel(d_logits, gumbel_i))
+    d_logp = D.categorical_log_prob(d_logits, d_idx)
+    d_onehot = torch.zeros_like(d_logits).scatter_(-1, d_idx[:, None], 1.0)
+    c_std, c_mean = std[dd:], logits[:, dd:]
+    c_act = c_mean if deterministic else D.normal_sample_from_noise(c_mean, c_std, noise_i)
+    c_logp = D.normal_log_prob(c_mean, c_std, c_act)
+    act = torch.cat([d_onehot, c_act], dim=-1)
+    nxt = torch.zeros(logits.shape[0], 1, in_dim, device=logits.device)
+    nxt[:, 0, 1:] = act
+    return act, torch.cat([d_logp[:, None], c_logp], dim=-1), nxt
+
+
+def _start_token(cfg, B, dev) -> torch.Tensor:
+    """The feed of position 0, ``(B, 1, action_input_dim)``: a set start flag
+    for the families whose feed has one (``transformer_act.py:33``), zeros for
+    ``continuous``."""
+    start = torch.zeros(B, 1, cfg.action_input_dim, device=dev)
+    if cfg.action_type != CONTINUOUS:
+        start[:, 0, 0] = 1.0
+    return start
 
 
 def cached_decode(
@@ -148,17 +188,12 @@ def cached_decode(
     under a ``position <= i`` mask.  Cross-attention queries for all A
     positions are projected once, before the loop.
 
-    Noise for a stochastic decode: ``gumbel (B, A, adim)`` and, for the
-    semi-discrete Gaussian tail, ``tail_noise (A, B, adim)`` (rows below
-    ``n_discrete_agents`` unused).  Whichever is not given is drawn from
+    Noise for a stochastic decode: ``gumbel`` and ``tail_noise`` at the
+    family's shapes (module docstring; the semi-discrete tail's rows below
+    ``n_discrete_agents`` are unused).  Whichever is not given is drawn from
     ``generator``.  A deterministic decode takes modes and reads no noise.
     """
     cfg = model.cfg
-    if cfg.action_type in (CONTINUOUS, AVAILABLE_CONTINUOUS):
-        raise NotImplementedError(
-            f"cached decode for action_type {cfg.action_type!r} is not ported yet "
-            "(ROADMAP.md queue 1, item 4)"
-        )
     dev = obs_rep.device
     B = obs_rep.shape[0]
     A, adim = cfg.n_agent, cfg.action_dim
@@ -169,8 +204,7 @@ def cached_decode(
     if not deterministic:
         gumbel, tail_noise = _draw_noise(cfg, B, dev, generator, gumbel, tail_noise)
 
-    shifted = torch.zeros(B, 1, cfg.action_input_dim, device=dev)
-    shifted[:, 0, 0] = 1.0   # start token
+    shifted = _start_token(cfg, B, dev)
     kv = model.fresh_packed_cache(B)
     q2 = model.decode_queries(obs_rep)                       # (n_block, B, H, A, Dh)
     valid = torch.ones(A, A, dtype=torch.bool, device=dev).tril()   # row i: keys <= i
@@ -181,9 +215,7 @@ def cached_decode(
             shifted, obs_rep[:, i:i + 1], q2[:, :, :, i:i + 1], kv, i, valid[i]
         )
         act, logp, shifted = _sample_position(
-            cfg, logits[:, 0], available_actions[:, i], i,
-            None if deterministic else gumbel[:, i],
-            None if deterministic or tail_noise is None else tail_noise[i],
+            cfg, logits[:, 0], available_actions[:, i], i, *_noise_at(gumbel, tail_noise, i),
             std, deterministic,
         )
         acts.append(act)
@@ -191,15 +223,44 @@ def cached_decode(
     return DecodeResult(torch.stack(acts, dim=1), torch.stack(logps, dim=1))
 
 
+def noise_shapes(cfg, B: int):
+    """``(gumbel shape, tail_noise shape)`` of one decode of ``B`` rows, None
+    where the family reads no such noise (module docstring)."""
+    A, adim, dd = cfg.n_agent, cfg.action_dim, cfg.discrete_dim
+    return {
+        DISCRETE: ((B, A, adim), None),
+        SEMI_DISCRETE: ((B, A, adim), (A, B, adim)),
+        CONTINUOUS: (None, (A, B, adim)),
+        AVAILABLE_CONTINUOUS: ((B, A, dd), (A, B, adim - dd)),
+    }[cfg.action_type]
+
+
+def draw_noise(shapes, generator: Optional[torch.Generator], dev):
+    """Draws at ``(gumbel shape, tail_noise shape)`` from ``generator``, the
+    Gumbel first; None where a shape is None."""
+    g_shape, n_shape = shapes
+    gumbel = None if g_shape is None else D.gumbel_noise(g_shape, generator, dev)
+    normal = None if n_shape is None else torch.randn(n_shape, generator=generator, device=dev)
+    return gumbel, normal
+
+
 def _draw_noise(cfg, B, dev, generator, gumbel, tail_noise):
-    """``(gumbel (B, A, adim), tail_noise (A, B, adim) or None)`` on ``dev``:
-    the given noise, or draws from ``generator``, Gumbel first."""
-    A, adim = cfg.n_agent, cfg.action_dim
-    if gumbel is None:
-        gumbel = D.gumbel_noise((B, A, adim), generator, dev)
-    if tail_noise is None and cfg.action_type == SEMI_DISCRETE:
-        tail_noise = torch.randn((A, B, adim), generator=generator, device=dev)
-    return gumbel.to(dev), None if tail_noise is None else tail_noise.to(dev)
+    """``(gumbel, tail_noise)`` on ``dev`` at the family's shapes: the given
+    noise, or draws from ``generator``, Gumbel first."""
+    g_draw, n_draw = draw_noise(
+        tuple(None if given is not None else shape
+              for given, shape in zip((gumbel, tail_noise), noise_shapes(cfg, B))),
+        generator, dev)
+    gumbel = g_draw if gumbel is None else gumbel
+    tail_noise = n_draw if tail_noise is None else tail_noise
+    return (None if gumbel is None else gumbel.to(dev),
+            None if tail_noise is None else tail_noise.to(dev))
+
+
+def _noise_at(gumbel, tail_noise, i):
+    """Position ``i``'s rows of the noise (None where absent)."""
+    return (None if gumbel is None else gumbel[:, i],
+            None if tail_noise is None else tail_noise[i])
 
 
 # ---------------------------------------------------------------------------
@@ -217,21 +278,52 @@ def ar_decode(
     tail_noise: Optional[torch.Tensor] = None,
 ) -> DecodeResult:
     """Exact autoregressive decode over the agent axis (JAX ``ar_decode``,
-    ``mode="scan"``): the same decode as :func:`cached_decode`, run whole by
-    :func:`_fused_ar_decode_path`.  It reads the same noise as
+    ``mode="scan"``): the same decode as :func:`cached_decode`, through the
+    decode kernels.  The discrete families run whole in one launch
+    (:func:`_fused_ar_decode_path`), the continuous ones one launch per
+    position with sampling between (:func:`_decode_step_path`), as the JAX
+    decode does on its Pallas path.  It reads the same noise as
     :func:`cached_decode` (given, or drawn from ``generator`` in the same
     order).  The JAX signature's ``obs`` is left out, as in
     ``Decoder.forward``: only MAT-Dec's decoder reads it (``dec_actor``, not
     ported: ROADMAP.md queue 1, item 3)."""
+    path = (_decode_step_path if model.cfg.action_type in CONTINUOUS_FAMILIES
+            else _fused_ar_decode_path)
+    return path(model, obs_rep, available_actions, deterministic,
+                generator=generator, gumbel=gumbel, tail_noise=tail_noise)
+
+
+def _decode_step_path(model, obs_rep, available_actions, deterministic, *,
+                      generator, gumbel, tail_noise) -> DecodeResult:
+    """The continuous families' exact decode (JAX ``ar_decode`` with
+    ``fused_decode_step``, ``decode.py:238-296``): one
+    ``ops/decode_step.fused_decode_step`` per position (the kernel on the
+    card, its plain twin on the CPU), its K/V caches in one workspace
+    allocated here, and the position's sampling in PyTorch between
+    launches."""
     cfg = model.cfg
-    if cfg.action_type not in (DISCRETE, SEMI_DISCRETE):
-        raise NotImplementedError(
-            f"ar_decode for action_type {cfg.action_type!r} is not ported yet: it needs "
-            "fused_decode_step and continuous sampling (ROADMAP.md queue 2, item 2; "
-            "queue 1, item 4)"
+    dev = obs_rep.device
+    B, A, Dm = obs_rep.shape
+    if available_actions is None:
+        available_actions = torch.ones(B, A, cfg.action_dim, device=dev)
+    if not deterministic:
+        gumbel, tail_noise = _draw_noise(cfg, B, dev, generator, gumbel, tail_noise)
+    std = model.action_std()
+    weights = pack_decode_weights(model)
+    caches = decode_caches(cfg.n_block, A, B, Dm, dev)
+    shifted = _start_token(cfg, B, dev)[:, 0]
+    acts, logps = [], []
+    for i in range(A):
+        logits = fused_decode_step(weights, shifted, obs_rep[:, i], caches, i,
+                                   n_head=cfg.n_head, adim=cfg.action_dim)
+        act, logp, nxt = _sample_position(
+            cfg, logits, available_actions[:, i], i, *_noise_at(gumbel, tail_noise, i),
+            std, deterministic,
         )
-    return _fused_ar_decode_path(model, obs_rep, available_actions, deterministic,
-                                 generator=generator, gumbel=gumbel, tail_noise=tail_noise)
+        shifted = nxt[:, 0]
+        acts.append(act)
+        logps.append(logp)
+    return DecodeResult(torch.stack(acts, dim=1), torch.stack(logps, dim=1))
 
 
 def _fused_ar_decode_path(model, obs_rep, available_actions, deterministic, *,
@@ -331,10 +423,10 @@ def parallel_act(
 ):
     """Teacher-forced log-probs and entropies in one decoder pass
     (``mat_dcml_tpu/models/decode.py::parallel_act``; ``transformer_act.py``
-    ``discrete_parallel_act`` and ``semi_discrete_parallel_act``).
+    ``*_parallel_act``).
 
-    ``obs_rep (B, A, D)``, ``action (B, A, 1)``.  Returns ``(log_prob,
-    entropy)``, each ``(B, A, 1)``.
+    ``obs_rep (B, A, D)``, ``action (B, A, act_out_dim)``.  Returns
+    ``(log_prob, entropy)``, each ``(B, A, act_prob_dim)``.
     """
     cfg = model.cfg
     B, A, adim = obs_rep.shape[0], cfg.n_agent, cfg.action_dim
@@ -345,11 +437,28 @@ def parallel_act(
         logits = D.mask_logits(logits, available_actions)
         return (D.categorical_log_prob(logits, idx)[..., None],
                 D.categorical_entropy(logits)[..., None])
-    if cfg.action_type != SEMI_DISCRETE:
-        raise NotImplementedError(
-            f"parallel_act for action_type {cfg.action_type!r} is not ported yet "
-            "(ROADMAP.md queue 1, item 4)"
-        )
+    if cfg.action_type == CONTINUOUS:
+        shifted = torch.zeros(B, A, adim, device=obs_rep.device)
+        shifted[:, 1:] = action[:, :-1]
+        mean = model.decoder(shifted, obs_rep)
+        std = model.action_std()
+        return (D.normal_log_prob(mean, std, action),
+                D.normal_entropy(mean, std).expand_as(mean))
+    if cfg.action_type == AVAILABLE_CONTINUOUS:
+        dd = cfg.discrete_dim
+        logits = model.decoder(_shift_with_start(action, B, A, adim), obs_rep)
+        if available_actions is not None:
+            # the reference masks the full logits, continuous means included
+            # (transformer_act.py:295-296)
+            logits = D.mask_logits(logits, available_actions)
+        d_idx = torch.argmax(action[..., :dd], dim=-1)
+        d_logp = D.categorical_log_prob(logits[..., :dd], d_idx)[..., None]
+        d_ent = D.categorical_entropy(logits[..., :dd])[..., None]
+        std = model.action_std()[dd:]
+        c_mean = logits[..., dd:]
+        c_logp = D.normal_log_prob(c_mean, std, action[..., dd:])
+        c_ent = D.normal_entropy(c_mean, std).expand_as(c_mean)
+        return torch.cat([d_logp, c_logp], dim=-1), torch.cat([d_ent, c_ent], dim=-1)
     nd = cfg.n_discrete_agents
     idx = action[:, :nd, 0].long()
     onehot = torch.nn.functional.one_hot(idx, adim).float()

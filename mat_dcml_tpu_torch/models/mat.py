@@ -8,7 +8,9 @@ logits.
 Action types: ``discrete`` (one categorical head per agent);
 ``semi_discrete``, the DCML mode (agents ``[0, n_agent + semi_index)`` are
 categorical, the tail agents Gaussian with ``std = sigmoid(log_std) * 0.5``);
-``continuous`` and ``available_continuous``, whose sampling is not ported yet.
+``continuous`` (a Gaussian over all action dims, multi-agent MuJoCo) and
+``available_continuous`` (a one-hot over the first ``discrete_dim`` dims, then
+a Gaussian over the rest).
 
 The trunk runs in f32 in this slice; the heads always do.
 """
@@ -51,6 +53,7 @@ class MATConfig:
     n_head: int = 2
     action_type: str = DISCRETE
     semi_index: int = -1          # number of trailing continuous agents, negated
+    discrete_dim: int = 2         # available_continuous: leading one-hot dims
 
     def __post_init__(self):
         if self.action_type not in ACTION_TYPES:
@@ -67,6 +70,21 @@ class MATConfig:
     def n_discrete_agents(self) -> int:
         """Agents with categorical heads in semi-discrete mode."""
         return self.n_agent + self.semi_index
+
+    @property
+    def act_out_dim(self) -> int:
+        """Width of one agent's action (``transformer_policy.py:43-57``)."""
+        return 1 if self.action_type in (DISCRETE, SEMI_DISCRETE) else self.action_dim
+
+    @property
+    def act_prob_dim(self) -> int:
+        """Width of one agent's log-prob: one categorical, one per Gaussian
+        dim, or the one-hot's plus the Gaussian tail's."""
+        if self.action_type in (DISCRETE, SEMI_DISCRETE):
+            return 1
+        if self.action_type == AVAILABLE_CONTINUOUS:
+            return self.action_dim - self.discrete_dim + 1
+        return self.action_dim
 
 
 class ObsEncoder(nn.Module):

@@ -1,7 +1,7 @@
 """The MAT policy: rollout decode, teacher-forced evaluation, values.
 
 Port of ``mat_dcml_tpu/models/policy.py::TransformerPolicy`` for the cached
-and the scan decode.  The JAX policy is a bundle of pure functions over an
+and the scan decode, for all four action families.  The JAX policy is a bundle of pure functions over an
 explicit params tree; here it holds the ``MultiAgentTransformer`` whose
 parameters the trainer updates in place.  All methods keep the ``(batch, n_agent, dim)``
 layout.
@@ -13,14 +13,19 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from mat_dcml_tpu_torch.models.decode import DECODE_MODES, parallel_act, serve_decode
-from mat_dcml_tpu_torch.models.mat import DISCRETE, SEMI_DISCRETE, MATConfig, MultiAgentTransformer
+from mat_dcml_tpu_torch.models.decode import (
+    CONTINUOUS_FAMILIES,
+    DECODE_MODES,
+    parallel_act,
+    serve_decode,
+)
+from mat_dcml_tpu_torch.models.mat import MATConfig, MultiAgentTransformer
 
 
 class PolicyOutput(NamedTuple):
     value: torch.Tensor      # (B, n_agent, 1)
-    action: torch.Tensor     # (B, n_agent, 1)
-    log_prob: torch.Tensor   # (B, n_agent, 1)
+    action: torch.Tensor     # (B, n_agent, act_out_dim)
+    log_prob: torch.Tensor   # (B, n_agent, act_prob_dim)
 
 
 class TransformerPolicy:
@@ -29,8 +34,10 @@ class TransformerPolicy:
     instead of a PRNG key.  The model is built on ``device`` (default
     ``cuda``) with weights from ``generator``.  ``decode_mode`` is the
     ``serve_decode`` mode of :meth:`get_actions`: ``"cached"`` or ``"scan"``
-    (the whole decode in one kernel launch on the card), or ``"stride"``
-    (deterministic only)."""
+    (through the decode kernels on the card), or ``"stride"`` (discrete
+    families, deterministic only).  ``act_out_dim`` and ``act_prob_dim`` are
+    the widths of one agent's action and log-prob
+    (``transformer_policy.py:43-57``)."""
 
     def __init__(self, cfg: MATConfig, decode_mode: str = "cached", device=None,
                  generator: Optional[torch.Generator] = None):
@@ -40,12 +47,14 @@ class TransformerPolicy:
             raise NotImplementedError(
                 "decode_mode 'spec' is not ported yet (ROADMAP.md queue 1, item 11)"
             )
-        if cfg.action_type not in (DISCRETE, SEMI_DISCRETE):
+        if decode_mode == "stride" and cfg.action_type in CONTINUOUS_FAMILIES:
             raise NotImplementedError(
-                f"action_type {cfg.action_type!r} is not ported yet (ROADMAP.md queue 1, item 4)"
+                f"the stride decode is discrete-family only, not {cfg.action_type!r}"
             )
         self.cfg = cfg
         self.decode_mode = decode_mode
+        self.act_out_dim = cfg.act_out_dim
+        self.act_prob_dim = cfg.act_prob_dim
         self.model = MultiAgentTransformer(cfg, device=device, generator=generator)
 
     @property
@@ -58,9 +67,9 @@ class TransformerPolicy:
                     generator: Optional[torch.Generator] = None) -> PolicyOutput:
         """Autoregressive decode (``ma_transformer.py:298-329``) through the
         serving entry ``serve_decode(mode=decode_mode)``, so rollout and
-        serving share one path.  Noise: ``gumbel (B, A, adim)`` and
-        ``tail_noise (A, B, adim)``, drawn from ``generator`` where not
-        given."""
+        serving share one path.  Noise: ``gumbel`` and ``tail_noise`` at the
+        family's shapes (``models/decode.py::noise_shapes``), drawn from
+        ``generator`` where not given."""
         v_loc, res = serve_decode(
             self.model, state, obs, available_actions, deterministic, mode=self.decode_mode,
             device=self.device, generator=generator, gumbel=gumbel, tail_noise=tail_noise,
@@ -69,7 +78,8 @@ class TransformerPolicy:
 
     def evaluate_actions(self, state, obs, action, available_actions=None):
         """Teacher-forced ``(values, log_prob, entropy)``
-        (``ma_transformer.py:257-295``); entropy un-reduced ``(B, A, 1)``."""
+        (``ma_transformer.py:257-295``); entropy un-reduced ``(B, A,
+        act_prob_dim)``."""
         v_loc, obs_rep = self.model.encode(state, obs)
         logp, ent = parallel_act(self.model, obs_rep, action, available_actions)
         return v_loc, logp, ent

@@ -67,8 +67,8 @@ def pack_ar_decode_weights(model) -> ARDecodeWeights:
     cfg = model.cfg
     if cfg.action_type not in (DISCRETE, SEMI_DISCRETE):
         raise NotImplementedError(
-            f"the whole decode packs the discrete families only, not {cfg.action_type!r} "
-            "(ROADMAP.md queue 2, item 2)"
+            f"the whole decode packs the discrete families only, not {cfg.action_type!r}; "
+            "the continuous ones decode a position a launch (ops/decode_step.py)"
         )
     dec = model.decoder
 

@@ -105,8 +105,8 @@ class ContinuousBatcher:
         timeout_s: Optional[float] = None,
     ) -> Future:
         """Enqueue one joint observation; returns a future resolving to
-        ``(action, log_prob)`` numpy arrays (``(A, 1)`` each), or raising a
-        typed :class:`ServingError`."""
+        ``(action (A, act_out_dim), log_prob (A, act_prob_dim))`` numpy arrays
+        (the model config's widths), or raising a typed :class:`ServingError`."""
         cfg = self.engine.cfg
         state = np.asarray(state, np.float32)
         obs = np.asarray(obs, np.float32)

@@ -6,7 +6,8 @@ only an admitted batch size, and the per-bucket compile count becomes a
 per-bucket dispatch count (``dispatch_counts``).  A request is one joint
 observation ``state (A, state_dim)``, ``obs (A, obs_dim)``,
 ``available_actions (A, action_dim)``; the engine takes host numpy stacked
-to a bucket's size and returns host numpy actions and log-probs.
+to a bucket's size and returns host numpy actions ``(b, A, act_out_dim)`` and
+log-probs ``(b, A, act_prob_dim)``, for any of the four action families.
 """
 
 from __future__ import annotations
@@ -30,7 +31,9 @@ class EngineConfig:
     """``buckets`` is the batch-size ladder, ascending; the batcher pads each
     dispatch up to the smallest bucket that fits.  ``decode_mode``:
     ``"cached"`` (O(1)-per-step packed-KV decode), ``"scan"`` (the same exact
-    decode in one kernel launch on the card) or ``"stride"`` (the reference's
+    decode through the decode kernels on the card: one launch a decode for
+    the discrete families, one a position for the continuous ones) or
+    ``"stride"`` (discrete families only; the reference's
     block-commit approximation, ``stride`` agents a pass; benchmark-protocol
     parity only)."""
 

@@ -2,12 +2,17 @@
 
 Port of ``mat_dcml_tpu/training/rollout.py`` for the single-objective MAT
 recipe.  The JAX ``lax.scan`` over the T steps of a chunk becomes a Python
-loop: each step decodes the E envs' actions with the policy (cached decode,
-stochastic) and steps the batched env.  Kept from the JAX collector:
+loop: each step decodes the E envs' actions with the policy (stochastic, in
+the policy's decode mode) and steps the batched env.  The env is either of
+the port's batched envs, DCML (``envs/dcml/env.py``) or multi-agent MuJoCo
+lite (``envs/mamujoco/lite.py``): anything with ``draw_reset`` /
+``draw_step`` / ``reset`` / ``step`` over explicit draws, whose time steps
+carry ``delay`` and ``payment`` (zeros for MuJoCo).  Kept from the JAX
+collector:
 
 - the mask convention ``masks[t+1] = 1 - done_env[t]`` (``dcml_runner.py:261-272``),
   with ``masks[0]`` the mask the chunk started with;
-- all-ones ``active_masks`` (every DCML agent shares the episode's done);
+- all-ones ``active_masks`` (every agent shares the episode's done);
 - the on-device episode accounting (``chunk_stats``): per-env running sums
   of reward, delay and payment, flushed into chunk totals where an episode
   ends, so only a handful of scalars leave the device.
@@ -23,9 +28,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from mat_dcml_tpu_torch.envs.dcml.env import DCMLEnv, DCMLState, ResetDraws, StepDraws
+from mat_dcml_tpu_torch.models.decode import draw_noise, noise_shapes
 from mat_dcml_tpu_torch.models.policy import TransformerPolicy
-from mat_dcml_tpu_torch.ops.distributions import gumbel_noise
 
 
 class Trajectory(NamedTuple):
@@ -33,9 +37,9 @@ class Trajectory(NamedTuple):
 
     share_obs: torch.Tensor          # (T, E, A, sob)
     obs: torch.Tensor                # (T, E, A, obs)
-    available_actions: torch.Tensor  # (T, E, A, act_dim)
-    actions: torch.Tensor            # (T, E, A, 1)
-    log_probs: torch.Tensor          # (T, E, A, 1)
+    available_actions: torch.Tensor  # (T, E, A, avail_dim): act_dim (DCML), 1 (MuJoCo)
+    actions: torch.Tensor            # (T, E, A, act_out_dim)
+    log_probs: torch.Tensor          # (T, E, A, act_prob_dim)
     values: torch.Tensor             # (T, E, A, 1)
     rewards: torch.Tensor            # (T, E, A, 1)
     masks: torch.Tensor              # (T+1, E, A, 1)
@@ -49,20 +53,24 @@ class Trajectory(NamedTuple):
 class RolloutState(NamedTuple):
     """The carry between chunks (``shared_buffer.py:188-198``)."""
 
-    env_states: DCMLState
+    env_states: NamedTuple           # the env's state, every field with a leading E
     obs: torch.Tensor                # (E, A, obs)
     share_obs: torch.Tensor          # (E, A, sob)
-    available_actions: torch.Tensor  # (E, A, act_dim)
+    available_actions: torch.Tensor  # (E, A, avail_dim)
     mask: torch.Tensor               # (E, A, 1) mask entering the next chunk
     episode_acc: torch.Tensor        # (E, 3) running reward, delay, payment
 
 
 class CollectDraws(NamedTuple):
-    """The random numbers of one chunk, each with a leading T axis."""
+    """The random numbers of one chunk, each with a leading T axis.  The
+    policy's noise has the shapes of ``models/decode.py::noise_shapes``
+    (None where the action family reads none): for DCML ``gumbel (T, E, A,
+    adim)`` and ``tail_noise (T, A, E, adim)``, for MuJoCo's continuous
+    actions ``tail_noise (T, A, E, adim)`` only."""
 
-    gumbel: torch.Tensor       # (T, E, A, adim) Gumbel noise of the categorical draws
-    tail_noise: torch.Tensor   # (T, A, E, adim) normals of the Gaussian tail
-    env: StepDraws             # every field (T, E, ...)
+    gumbel: Optional[torch.Tensor]      # Gumbel noise of the categorical draws
+    tail_noise: Optional[torch.Tensor]  # normals of the Gaussian parts
+    env: NamedTuple                     # the env's StepDraws, every field (T, E, ...)
 
 
 def _at(draws, t: int):
@@ -70,8 +78,16 @@ def _at(draws, t: int):
     return type(draws)(*(_at(x, t) if isinstance(x, tuple) else x[t] for x in draws))
 
 
+def _stack(steps):
+    """NamedTuples of tensors (nested) -> one with every leaf stacked on a
+    new leading axis."""
+    first = steps[0]
+    return type(first)(*(_stack(xs) if isinstance(xs[0], tuple) else torch.stack(xs)
+                         for xs in zip(*steps)))
+
+
 class RolloutCollector:
-    def __init__(self, env: DCMLEnv, policy: TransformerPolicy, episode_length: int):
+    def __init__(self, env, policy: TransformerPolicy, episode_length: int):
         self.env = env
         self.policy = policy
         self.T = episode_length
@@ -79,20 +95,13 @@ class RolloutCollector:
     def draw(self, n_envs: int, generator: Optional[torch.Generator]) -> CollectDraws:
         """The chunk's noise and env draws from ``generator`` on the policy's
         device."""
-        cfg, dev = self.policy.cfg, self.policy.device
-        A, adim = cfg.n_agent, cfg.action_dim
-        steps = [self.env.draw_step(n_envs, generator) for _ in range(self.T)]
-        env_draws = StepDraws(
-            *(torch.stack(xs) for xs in zip(*(s[:4] for s in steps))),
-            reset=ResetDraws(*(torch.stack(xs) for xs in zip(*(s.reset for s in steps)))),
-        )
-        return CollectDraws(
-            gumbel=gumbel_noise((self.T, n_envs, A, adim), generator, dev),
-            tail_noise=torch.randn((self.T, A, n_envs, adim), generator=generator, device=dev),
-            env=env_draws,
-        )
+        env_draws = _stack([self.env.draw_step(n_envs, generator) for _ in range(self.T)])
+        shapes = tuple(None if s is None else (self.T,) + s
+                       for s in noise_shapes(self.policy.cfg, n_envs))
+        gumbel, tail_noise = draw_noise(shapes, generator, self.policy.device)
+        return CollectDraws(gumbel=gumbel, tail_noise=tail_noise, env=env_draws)
 
-    def init_state(self, n_envs: int, draws: Optional[ResetDraws] = None,
+    def init_state(self, n_envs: int, draws: Optional[NamedTuple] = None,
                    generator: Optional[torch.Generator] = None) -> RolloutState:
         if draws is None:
             draws = self.env.draw_reset(n_envs, generator)
@@ -118,9 +127,11 @@ class RolloutCollector:
         tr = {k: [] for k in keys}
         with torch.no_grad():
             for t in range(self.T):
+                gumbel, tail_noise = (None if x is None else x[t]
+                                      for x in (draws.gumbel, draws.tail_noise))
                 out = self.policy.get_actions(
                     st.share_obs, st.obs, st.available_actions, deterministic=False,
-                    gumbel=draws.gumbel[t], tail_noise=draws.tail_noise[t],
+                    gumbel=gumbel, tail_noise=tail_noise,
                 )
                 env_states, ts = self.env.step(st.env_states, out.action, _at(draws.env, t))
                 done_env = ts.done.all(dim=1)                                  # (E,)

@@ -1,10 +1,11 @@
-"""DCML training: the runner and the classic collect-then-train loop.
+"""The classic collect-then-train loop, and the DCML runner.
 
 Port of ``mat_dcml_tpu/training/runner.py::build_mat_policy`` and a lean
-``DCMLRunner`` around ``base_runner.py::_train_loop_episodic`` (``:702``):
+``EpisodicRunner`` around ``base_runner.py::_train_loop_episodic`` (``:702``):
 each episode collects one chunk, runs one PPO update, and every
 ``log_interval`` episodes writes one record to ``<run_dir>/metrics.jsonl``
-with the JAX record's basic keys.  Not ported yet, each said where it
+with the JAX record's basic keys.  ``DCMLRunner`` trains on the DCML env;
+``training/mujoco_runner.py::MujocoRunner`` on multi-agent MuJoCo lite.  Not ported yet, each said where it
 matters: checkpointing and resume (ROADMAP.md queue 1, item 7), evaluation
 (item 8), telemetry, fused dispatch and resilience (items 12-13).
 
@@ -32,8 +33,8 @@ from mat_dcml_tpu_torch.training.ppo import MATTrainer, PPOConfig
 from mat_dcml_tpu_torch.training.rollout import RolloutCollector
 
 
-def build_mat_policy(run: RunConfig, env: DCMLEnv, device=None,
-                     generator: Optional[torch.Generator] = None) -> TransformerPolicy:
+def check_run(run: RunConfig) -> None:
+    """The run settings the port's trainers do not take: raise on them."""
     if run.algorithm_name != "mat":
         raise NotImplementedError(
             f"algorithm_name={run.algorithm_name!r} is not ported yet; the port trains 'mat' "
@@ -50,6 +51,11 @@ def build_mat_policy(run: RunConfig, env: DCMLEnv, device=None,
             "decode_mode='stride' is eval-only (see DCMLRunner.evaluate); "
             "training collect needs 'cached', 'scan', or 'spec'"
         )
+
+
+def build_mat_policy(run: RunConfig, env: DCMLEnv, device=None,
+                     generator: Optional[torch.Generator] = None) -> TransformerPolicy:
+    check_run(run)
     cfg = MATConfig(
         n_agent=env.n_agents, obs_dim=env.obs_dim, state_dim=env.share_obs_dim,
         action_dim=env.action_dim, n_block=run.n_block, n_embd=run.n_embd, n_head=run.n_head,
@@ -58,19 +64,18 @@ def build_mat_policy(run: RunConfig, env: DCMLEnv, device=None,
     return TransformerPolicy(cfg, decode_mode=run.decode_mode, device=device, generator=generator)
 
 
-class DCMLRunner:
-    """Builds the env, policy, collector and trainer on ``run.device`` and
-    runs the episodic loop."""
+class EpisodicRunner:
+    """The collector and trainer around an env and a policy built by the
+    subclass (``make_env`` and ``make_policy``) on ``run.device``, and the
+    episodic loop."""
 
-    def __init__(self, run: RunConfig, ppo: PPOConfig, log_fn=print,
-                 env_config: DCMLEnvConfig = DCMLEnvConfig()):
+    def __init__(self, run: RunConfig, ppo: PPOConfig, log_fn=print):
         self.run_cfg = run
         self.log = log_fn
         self.device = resolve_device(run.device)
         self.generator = torch.Generator(device=self.device).manual_seed(run.seed)
-        self.env = DCMLEnv(env_config, device=self.device)
-        self.policy = build_mat_policy(run, self.env, device=self.device,
-                                       generator=torch.Generator().manual_seed(run.seed))
+        self.env = self.make_env()
+        self.policy = self.make_policy(torch.Generator().manual_seed(run.seed))
         self.trainer = MATTrainer(self.policy, ppo)
         self.collector = RolloutCollector(self.env, self.policy, run.episode_length)
         self.run_dir = (Path(run.run_dir) / run.env_name / run.scenario / run.algorithm_name
@@ -79,6 +84,12 @@ class DCMLRunner:
         self.records: list = []
         self.log("checkpointing is not ported yet (ROADMAP.md queue 1, item 7): "
                  "this run saves no model")
+
+    def make_env(self):
+        raise NotImplementedError
+
+    def make_policy(self, generator: torch.Generator) -> TransformerPolicy:
+        raise NotImplementedError
 
     def setup(self):
         train_state = self.trainer.init_state()
@@ -131,3 +142,18 @@ class DCMLRunner:
                          f"ent {record['dist_entropy']:.3f} collect {collect_s:.2f}s "
                          f"train {train_s:.2f}s")
         return train_state, rollout_state
+
+
+class DCMLRunner(EpisodicRunner):
+    """The DCML recipe: the worker-selection env and the semi-discrete MAT."""
+
+    def __init__(self, run: RunConfig, ppo: PPOConfig, log_fn=print,
+                 env_config: DCMLEnvConfig = DCMLEnvConfig()):
+        self.env_config = env_config
+        super().__init__(run, ppo, log_fn)
+
+    def make_env(self) -> DCMLEnv:
+        return DCMLEnv(self.env_config, device=self.device)
+
+    def make_policy(self, generator: torch.Generator) -> TransformerPolicy:
+        return build_mat_policy(self.run_cfg, self.env, device=self.device, generator=generator)

@@ -63,3 +63,28 @@ def test_port_model_round_trips_through_jax():
 def test_unknown_leaf_raises():
     with pytest.raises(ValueError, match="unknown flax parameter"):
         params_from_jax({"params": {"decoder": {"mystery": np.zeros(3)}}})
+
+
+@pytest.mark.parametrize("action_type", ["continuous", "available_continuous"])
+def test_continuous_families_carry_their_own_leaves(action_type):
+    """The continuous families' decoder embeds with a biased dense
+    (``action_encoder_bias``) and keeps ``log_std``; both cross exactly."""
+    shape = dict(SHAPE, n_agent=5, action_dim=8, action_type=action_type)
+    cfg = JaxMATConfig(**shape)
+    tree = jax.tree.map(np.asarray, jax.device_get(JaxMAT(cfg).init(
+        jax.random.key(4), jnp.zeros((1, 5, cfg.state_dim)), jnp.zeros((1, 5, cfg.obs_dim)),
+        jnp.zeros((1, 5, cfg.action_input_dim)))))
+    sd = params_from_jax(tree)
+    model = MultiAgentTransformer(MATConfig(**shape), device="cpu")
+    assert set(sd) == set(model.state_dict())
+    model.load_state_dict(sd, strict=True)
+    dec = tree["params"]["decoder"]
+    np.testing.assert_array_equal(model.decoder.action_encoder_bias.weight.detach().numpy(),
+                                  dec["action_encoder_bias"]["kernel"].T)
+    np.testing.assert_array_equal(model.decoder.action_encoder_bias.bias.detach().numpy(),
+                                  dec["action_encoder_bias"]["bias"])
+    np.testing.assert_array_equal(model.decoder.log_std.detach().numpy(), dec["log_std"])
+    back = params_to_jax(sd)["params"]["decoder"]
+    np.testing.assert_array_equal(back["log_std"], dec["log_std"])
+    np.testing.assert_array_equal(back["action_encoder_bias"]["kernel"],
+                                  dec["action_encoder_bias"]["kernel"])

@@ -18,6 +18,12 @@ Whole decode (``ar_decode``) against its plain twin at the DCML width, f32:
 log-probs and the tail's actions atol 1e-4, worker actions equal except past
 a position whose top-2 plain score margin is below 1e-5 (a near-tie that
 summation order may break).
+
+Decode step (``decode_step``) against its plain twin for both continuous
+families at the multi-agent MuJoCo width (manyagent_ant 10x2: A = 10, action
+8) and at 101 agents, f32, O(1) weights: logits and every cache atol 2e-5
+(summation order only).  The cache-layout probe's kernels against their
+plain versions, atol 1e-5.
 """
 
 import pytest
@@ -27,6 +33,7 @@ from mat_dcml_tpu_torch.models.decode import serve_decode
 from mat_dcml_tpu_torch.models.mat import SEMI_DISCRETE, MATConfig, MultiAgentTransformer
 from mat_dcml_tpu_torch.ops import ar_decode as ard
 from mat_dcml_tpu_torch.ops import cuda_attention
+from mat_dcml_tpu_torch.ops import decode_step as dst
 from mat_dcml_tpu_torch.ops.distributions import gumbel_noise
 
 pytestmark = pytest.mark.cuda
@@ -151,11 +158,11 @@ DECODE_TOL = 1e-4
 NEAR_TIE = 1e-5
 
 
-def _dcml_model(device, seed=0):
-    """The DCML-width MAT with every weight redrawn at O(1) scale: the
-    reference init's 0.01-gain heads give logits near 0 and near-ties
-    everywhere."""
-    model = MultiAgentTransformer(DCML, device="cpu")
+def _dcml_model(device, seed=0, cfg=DCML):
+    """The DCML-width MAT (or ``cfg``'s) with every weight redrawn at O(1)
+    scale: the reference init's 0.01-gain heads give logits near 0 and
+    near-ties everywhere."""
+    model = MultiAgentTransformer(cfg, device="cpu")
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -261,3 +268,91 @@ def test_scan_serve_decode_launches_the_kernel_once(cuda):
         assert ard.launches == before + 1
         assert cuda_attention.launches == attn + DCML.n_block   # the encoder's attentions
         assert res.action.shape == (4, DCML.n_agent, 1)
+
+
+STEP_TOL = 2e-5
+
+
+def _mujoco_cfg(family, n_agent):
+    """MAT at manyagent_ant 10x2's widths (obs 36, state 240, action 8)."""
+    return MATConfig(n_agent=n_agent, obs_dim=36, state_dim=240, action_dim=8, n_block=2,
+                     n_embd=64, n_head=2, action_type=family)
+
+
+@pytest.mark.parametrize("i_at", ["first", "mid", "last"])
+@pytest.mark.parametrize("B", [1, 8, 128])
+@pytest.mark.parametrize("A", [10, 101])
+@pytest.mark.parametrize("family", ["continuous", "available_continuous"])
+def test_decode_step_kernel_matches_plain(cuda, family, A, B, i_at):
+    cfg = _mujoco_cfg(family, A)
+    weights = dst.pack_decode_weights(_dcml_model(cuda, seed=A, cfg=cfg))
+    g = torch.Generator(device=cuda).manual_seed(B)
+    caches = dst.decode_caches(cfg.n_block, A, B, cfg.n_embd, cuda)
+    caches.copy_(torch.randn(caches.shape, generator=g, device=cuda))
+    x_in = torch.randn(B, cfg.action_input_dim, generator=g, device=cuda)
+    rep = torch.randn(B, A, cfg.n_embd, generator=g, device=cuda)
+    i = {"first": 0, "mid": A // 2, "last": A - 1}[i_at]
+    mine, ref = caches.clone(), caches.clone()
+    before = dst.launches
+    out = dst.fused_decode_step(weights, x_in, rep[:, i], mine, i, n_head=cfg.n_head,
+                                adim=cfg.action_dim)
+    torch.cuda.synchronize()
+    assert dst.launches == before + 1
+    want = dst.decode_step_plain(weights, x_in, rep[:, i], ref, i, n_head=cfg.n_head,
+                                 adim=cfg.action_dim)
+    assert dst.launches == before + 1
+    assert out.shape == (B, cfg.action_dim)
+    assert (out - want).abs().max() <= STEP_TOL
+    assert (mine - ref).abs().max() <= STEP_TOL
+    # only position i was written
+    assert torch.equal(mine[:, :i], caches[:, :i]) and torch.equal(mine[:, i + 1:], caches[:, i + 1:])
+
+
+def test_decode_step_rejects_what_it_cannot_run(cuda):
+    cfg = _mujoco_cfg("continuous", 10)
+    weights = dst.pack_decode_weights(_dcml_model(cuda, cfg=cfg))
+    caches = dst.decode_caches(cfg.n_block, 10, 2, cfg.n_embd, cuda)
+    x_in = torch.zeros(2, cfg.action_input_dim, device=cuda)
+    rep = torch.zeros(2, cfg.n_embd, device=cuda)
+    kw = dict(n_head=cfg.n_head, adim=cfg.action_dim)
+    with pytest.raises(ValueError, match="f32 only"):
+        dst.fused_decode_step(weights, x_in.bfloat16(), rep, caches, 0, **kw)
+    with pytest.raises(ValueError, match="one device"):
+        dst.fused_decode_step(weights, x_in.cpu(), rep, caches, 0, **kw)
+    with pytest.raises(ValueError, match="at most .* heads"):
+        dst.fused_decode_step(weights, x_in, rep, caches, 0,
+                              **dict(kw, n_head=2 * dst.kernel_limits()["heads"]))
+    long_l = dst.kernel_limits()["l"] + 1
+    with pytest.raises(ValueError, match="at most .* positions"):
+        dst.fused_decode_step(weights, x_in, rep,
+                              dst.decode_caches(cfg.n_block, long_l, 2, cfg.n_embd, cuda), 0, **kw)
+    with pytest.raises(ValueError, match="contiguous last dim"):
+        dst.fused_decode_step(weights, x_in, torch.zeros(cfg.n_embd, 2, device=cuda).t(),
+                              caches, 0, **kw)
+
+
+@pytest.mark.parametrize("mode", ["cached", "scan"])
+def test_continuous_scan_decode_launches_once_a_position(cuda, mode):
+    cfg = _mujoco_cfg("continuous", 10)
+    model = _dcml_model(cuda, cfg=cfg)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    state = torch.randn(8, 10, cfg.state_dim, generator=g, device=cuda)
+    obs = torch.randn(8, 10, cfg.obs_dim, generator=g, device=cuda)
+    before = dst.launches
+    _, res = serve_decode(model, state, obs, None, deterministic=False, mode=mode, device=cuda,
+                          generator=g)
+    torch.cuda.synchronize()
+    assert dst.launches == before + (10 if mode == "scan" else 0)
+    assert res.action.shape == res.log_prob.shape == (8, 10, cfg.action_dim)
+    assert torch.isfinite(res.action).all() and torch.isfinite(res.log_prob).all()
+
+
+def test_cache_layout_probe_kernels_match_plain(cuda):
+    from mat_dcml_tpu_torch.probes import cache_layout
+
+    rows, verdicts = cache_layout.run(batches=(8,), log=lambda *_: None)
+    assert {(r["question"], r["variant"]) for r in rows} == {
+        ("store", "position_major"), ("store", "batch_major"), ("attend", "position_major"),
+        ("attend", "batch_major"), ("softmax", "shared_memory"), ("softmax", "warp_shuffle")}
+    assert all(r["max_abs_err"] <= cache_layout.TOL and r["ms"] > 0 for r in rows)
+    assert set(verdicts) == {"store B=8", "attend B=8", "softmax B=8"}

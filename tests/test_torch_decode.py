@@ -13,8 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from mat_dcml_tpu_torch.models.decode import ar_decode, serve_decode
-from mat_dcml_tpu_torch.models.mat import MATConfig, MultiAgentTransformer
+from mat_dcml_tpu_torch.models.decode import serve_decode
 from tests.torch_port_helpers import (
     SMALL,
     TINY,
@@ -70,15 +69,6 @@ def test_unported_modes_raise(mode):
     state, obs, avail = inputs(jcfg, 1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         serve_decode(model, state, obs, avail, mode=mode, device="cpu")
-
-
-@pytest.mark.parametrize("action_type", ["continuous", "available_continuous"])
-def test_ar_decode_raises_for_continuous_families(action_type):
-    cfg = MATConfig(n_agent=3, obs_dim=4, state_dim=4, action_dim=2, n_block=1, n_embd=8,
-                    action_type=action_type)
-    model = MultiAgentTransformer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 2, item 2"):
-        ar_decode(model, torch.zeros(1, 3, 8), None, deterministic=True)
 
 
 def test_stochastic_stride_raises():

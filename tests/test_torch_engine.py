@@ -117,3 +117,30 @@ def test_install_params_swaps_weights(setup):
 def test_engine_config_rejects(kw, err):
     with pytest.raises(err):
         EngineConfig(**kw)
+
+
+@pytest.mark.parametrize("mode", ["cached", "scan"])
+@pytest.mark.parametrize("family", ["continuous", "available_continuous"])
+def test_batcher_serves_continuous_families(family, mode):
+    """The batcher and engine return ``(A, act_out_dim)`` actions and
+    ``(A, act_prob_dim)`` log-probs per request, equal to a direct
+    ``serve_decode`` of the same rows."""
+    shape = dict(TINY, action_dim=4, action_type=family, semi_index=-1)
+    jcfg, tcfg = configs(shape)
+    model = torch_model(tcfg, jax_params(jcfg))
+    eng = DecodeEngine(model.state_dict(), tcfg, EngineConfig(buckets=BUCKETS, decode_mode=mode),
+                       log_fn=lambda *_: None, device="cpu")
+    batcher = ContinuousBatcher(eng, BatcherConfig(max_batch_wait_ms=20.0), log_fn=lambda *_: None)
+    state, obs, avail = inputs(tcfg, 3, seed=6)
+    avail[..., 2:] = 1.0   # the Gaussian dims are always available
+    try:
+        results = [f.result(timeout=60) for f in
+                   [batcher.submit(state[i], obs[i], avail[i]) for i in range(3)]]
+    finally:
+        batcher.close()
+    _, direct = serve_decode(model, state, obs, avail, deterministic=True, mode=mode, device="cpu")
+    for i, (act, logp) in enumerate(results):
+        assert act.shape == (tcfg.n_agent, tcfg.act_out_dim)
+        assert logp.shape == (tcfg.n_agent, tcfg.act_prob_dim)
+        np.testing.assert_array_equal(act, direct.action[i].numpy())
+        np.testing.assert_array_equal(logp, direct.log_prob[i].numpy())

@@ -34,7 +34,10 @@ def _modules():
 def test_importing_the_port_loads_no_jax():
     mods = _modules()
     assert {"mat_dcml_tpu_torch.training.ppo", "mat_dcml_tpu_torch.envs.dcml.env",
-            "mat_dcml_tpu_torch.train_dcml"} <= set(mods)
+            "mat_dcml_tpu_torch.train_dcml", "mat_dcml_tpu_torch.ops.decode_step",
+            "mat_dcml_tpu_torch.envs.mamujoco.lite", "mat_dcml_tpu_torch.envs.mamujoco.obsk",
+            "mat_dcml_tpu_torch.training.mujoco_runner", "mat_dcml_tpu_torch.train_mujoco",
+            "mat_dcml_tpu_torch.probes.cache_layout"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -84,6 +84,30 @@ def replay_noise(key, batch, cfg):
     return gumbel, tail
 
 
+def replay_family_noise(key, batch, cfg):
+    """The noise JAX's decode draws from ``key`` for any action family, in
+    the port's shapes (``models/decode.py::noise_shapes``; None where the
+    family reads none): per position ``key, k_d, k_c = split(key, 3)``, then
+    at JAX's own shapes ``gumbel(k_d, (B, adim))`` for the categorical draws
+    (``(B, discrete_dim)`` for ``available_continuous``'s one-hot) and
+    ``normal(k_c, (B, adim))`` for the Gaussian parts (``(B, adim -
+    discrete_dim)`` for ``available_continuous``)."""
+    if cfg.action_type in ("discrete", "semi_discrete"):
+        gumbel, tail = replay_noise(key, batch, cfg)
+        return gumbel, tail if cfg.action_type == "semi_discrete" else None
+    A, adim, dd = cfg.n_agent, cfg.action_dim, cfg.discrete_dim
+    avail_cont = cfg.action_type == "available_continuous"
+    n_dim = adim - dd if avail_cont else adim
+    gumbel = np.zeros((batch, A, dd), np.float32) if avail_cont else None
+    tail = np.zeros((A, batch, n_dim), np.float32)
+    for i in range(A):
+        key, k_d, k_c = jax.random.split(key, 3)
+        if avail_cont:
+            gumbel[:, i] = np.asarray(jax.random.gumbel(k_d, (batch, dd), jnp.float32))
+        tail[i] = np.asarray(jax.random.normal(k_c, (batch, n_dim), jnp.float32))
+    return gumbel, tail
+
+
 def assert_decodes_agree(act, logp, ref_act, ref_logp, ref_logits, nd, atol,
                          margin=1e-5):
     """The port's decode against the reference's, row by row.
