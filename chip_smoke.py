@@ -74,8 +74,14 @@ N_CLIENTS = 8
 REQUESTS_PER_CLIENT = 12
 BUCKETS = (1, 8, 32, 128)
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
-PEAK_FLOPS = {"float32": 67e12,    # f32 outside the tensor cores
-              "bfloat16": 989e12}  # bf16 tensor cores, dense
+# the fastest unit that computes each function to its dtype's accuracy: f32
+# through 3xTF32 on the tensor cores (three TF32 products for one f32
+# product: 495 / 3 TFLOP/s), bf16 on the tensor cores, dense
+PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
+# f32 outside the tensor cores: the peak of the decode kernels' bounds, whose
+# f32 arithmetic runs there, and of the attention kernels' old bound (printed
+# beside the new one)
+F32_SIMT_FLOPS = 67e12
 # bf16: both sides round P and the output to bf16, so a sound kernel may
 # differ from plain by an ulp of the output (3.9e-3 below 1); a kernel that
 # loses one of the 101 keys differs by far more (phase 2 prints that reading).
@@ -182,10 +188,18 @@ def _time_ms(torch, fn, iters=200):
     return start.elapsed_time(end) / iters, eager
 
 
-def _bound(q, k, mask, dtype_name):
+def _roof(nbytes, flops, peak):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _bound(q, k, mask, dtype_name, causal=False, peak=None):
     """Least time for the function on this card: bytes each input is read
     and each output written once (keys a row's mask excludes need not be
-    read), against flops for q.k and p.v over those keys."""
+    read), against flops for q.k and p.v over those keys (under causal, the
+    (query, key) pairs on and below the diagonal), at ``peak`` (default
+    PEAK_FLOPS of the dtype)."""
     B, H, Lq, Dh = q.shape
     Lk = k.shape[2]
     item = q.element_size()
@@ -197,10 +211,9 @@ def _bound(q, k, mask, dtype_name):
         keys = H * int(mask.sum())
     nbytes = 2 * B * H * Lq * Dh * item + 2 * keys * Dh * item
     nbytes += 0 if mask is None else mask.numel()
-    flops = 2 * 2 * Lq * keys * Dh
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    pairs = Lq * keys if not causal else B * H * Lq * (Lq + 1) // 2
+    flops = 2 * 2 * pairs * Dh
+    return _roof(nbytes, flops, peak or PEAK_FLOPS[dtype_name])
 
 
 def phase2_kernels(torch):
@@ -223,6 +236,12 @@ def phase2_kernels(torch):
         cases += [("causal", 8, A, True, None),
                   ("per_batch_mask", 8, 1, False, torch.rand(8, A, generator=g, device=dev) > 0.4),
                   ("per_batch_mask_causal", 8, A, True, torch.rand(8, A, generator=g, device=dev) > 0.4)]
+        # the decode at buckets 32 and 1 (one block a row from 64 rows up,
+        # clusters of 4 below), with the cached decode's mask and a per-batch one
+        for b in (32, 1):
+            cases += [(f"decode_b{b}_i50", b, 1, False, torch.arange(A, device=dev) <= 50),
+                      (f"decode_b{b}_per_batch_mask", b, 1, False,
+                       torch.rand(b, A, generator=g, device=dev) > 0.4)]
         for label, B, lq, causal, mask in cases:
             q, k, v = qkv(B, lq, A, dtype)
             out = ca.fused_masked_attention(q, k, v, causal=causal, kv_mask=mask)
@@ -242,40 +261,58 @@ def phase2_kernels(torch):
             raise AssertionError(f"tolerance {TOL[name]} would pass a dropped key ({fault})")
 
     shapes = {}
-    for label, lq, mask in (("encoder", A, None),
-                            ("decode", 1, torch.arange(A, device=dev) <= A - 1)):
-        q, k, v = qkv(N_B, lq, A, torch.float32)
+    say(f"[phase 2] bounds take f32 at {PEAK_FLOPS['float32'] / 1e12:.0f} TFLOP/s (3xTF32 on the "
+        f"tensor cores); the old bound (f32 outside them, {F32_SIMT_FLOPS / 1e12:.0f} TFLOP/s) "
+        "is printed beside it")
+    # the main path's shapes: the encoder at bucket 128 and at the rollout's
+    # batch, the update's causal decoder attention (minibatch 100), the
+    # cached decode step with every key valid at bucket 128 and half of them
+    # at bucket 32 and at the rollout's batch
+    for label, B, lq, causal, mask in (
+            ("encoder", N_B, A, False, None),
+            ("encoder_b8", 8, A, False, None),
+            ("update_causal", 100, A, True, None),
+            ("decode", N_B, 1, False, torch.arange(A, device=dev) <= A - 1),
+            ("decode_b32", 32, 1, False, torch.arange(A, device=dev) <= 50),
+            ("decode_b8", 8, 1, False, torch.arange(A, device=dev) <= 50)):
+        q, k, v = qkv(B, lq, A, torch.float32)
         sdpa_mask = None if mask is None else mask[None, None, None, :]
-        ms, eager_ms = _time_ms(torch, lambda: ca.fused_masked_attention(q, k, v, kv_mask=mask))
-        plain_ms, plain_eager_ms = _time_ms(torch, lambda: ca.attention_plain(q, k, v, kv_mask=mask))
+        ms, eager_ms = _time_ms(
+            torch, lambda: ca.fused_masked_attention(q, k, v, causal=causal, kv_mask=mask))
+        plain_ms, plain_eager_ms = _time_ms(
+            torch, lambda: ca.attention_plain(q, k, v, causal=causal, kv_mask=mask))
         lib_ms, lib_eager_ms = _time_ms(
-            torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask))
-        bound_ms, bound_by = _bound(q, k, mask, "float32")
-        shapes[label] = {"shape": f"q {tuple(q.shape)} k {tuple(k.shape)} f32",
+            torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask,
+                                                          is_causal=causal))
+        bound_ms, bound_by = _bound(q, k, mask, "float32", causal)
+        old_bound_ms, old_bound_by = _bound(q, k, mask, "float32", causal, peak=F32_SIMT_FLOPS)
+        shapes[label] = {"shape": f"q {tuple(q.shape)} k {tuple(k.shape)} f32, causal {causal}, "
+                                  f"keys valid {A if mask is None else int(mask.sum())}",
                          "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by,
+                         "bound_f32_simt_ms": old_bound_ms, "bound_f32_simt_by": old_bound_by,
                          "eager_ms": eager_ms, "plain_eager_ms": plain_eager_ms,
                          "library_eager_ms": lib_eager_ms}
         say(f"[phase 2] time {label} f32 {tuple(q.shape)}, device (eager) per call: "
             f"kernel {ms * 1e3:.2f} ({eager_ms * 1e3:.2f}) us, "
             f"plain {plain_ms * 1e3:.2f} ({plain_eager_ms * 1e3:.2f}) us, "
             f"sdpa {lib_ms * 1e3:.2f} ({lib_eager_ms * 1e3:.2f}) us, "
-            f"bound {bound_ms * 1e3:.2f} us ({bound_by}); L2-warm")
+            f"bound {bound_ms * 1e3:.2f} us ({bound_by}; old bound {old_bound_ms * 1e3:.2f} us "
+            f"{old_bound_by}); L2-warm")
     torch.cuda.synchronize()
     return errs, shapes
 
 
-def _bwd_bound(q, causal, dtype_name):
+def _bwd_bound(q, causal, dtype_name, peak=None):
     """Least time for the backward on this card: q, k, v, dO read and dq,
     dk, dv written once, against 10 flops per (query, key, dim) triple the
-    causal mask leaves live (five products of Lq x Lk x Dh multiply-adds)."""
+    causal mask leaves live (five products of Lq x Lk x Dh multiply-adds),
+    at ``peak`` (default PEAK_FLOPS of the dtype)."""
     B, H, L, Dh = q.shape
     nbytes = 7 * B * H * L * Dh * q.element_size()
     pairs = L * (L + 1) // 2 if causal else L * L
     flops = 10 * B * H * pairs * Dh
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return _roof(nbytes, flops, peak or PEAK_FLOPS[dtype_name])
 
 
 def phase2_backward(torch):
@@ -330,16 +367,20 @@ def phase2_backward(torch):
             lib_f_ms, _ = _time_ms(torch, sdpa)
             lib_ms = lib_fb_ms - lib_f_ms
             bound_ms, bound_by = _bwd_bound(q, causal, name)
+            old_bound_ms, old_bound_by = _bwd_bound(q, causal, name, peak=F32_SIMT_FLOPS)
             shapes[label] = {"shape": f"q/k/v/dO {tuple(q.shape)} f32, causal {causal}",
                              "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                             "bound_ms": bound_ms, "bound_by": bound_by, "eager_ms": eager_ms,
+                             "bound_ms": bound_ms, "bound_by": bound_by,
+                             "bound_f32_simt_ms": old_bound_ms,
+                             "bound_f32_simt_by": old_bound_by, "eager_ms": eager_ms,
                              "plain_eager_ms": plain_eager_ms,
                              "library_fwd_bwd_ms": lib_fb_ms, "library_fwd_ms": lib_f_ms}
             say(f"[phase 2] time bwd {label} f32 {tuple(q.shape)}, device (eager) per call: "
                 f"kernel {ms * 1e3:.2f} ({eager_ms * 1e3:.2f}) us, "
                 f"plain fwd+bwd {plain_ms * 1e3:.2f} ({plain_eager_ms * 1e3:.2f}) us, "
                 f"sdpa bwd {lib_ms * 1e3:.2f} us (fwd+bwd {lib_fb_ms * 1e3:.2f} less fwd "
-                f"{lib_f_ms * 1e3:.2f}), bound {bound_ms * 1e3:.2f} us ({bound_by}); L2-warm")
+                f"{lib_f_ms * 1e3:.2f}), bound {bound_ms * 1e3:.2f} us ({bound_by}; old bound "
+                f"{old_bound_ms * 1e3:.2f} us {old_bound_by}); L2-warm")
     torch.cuda.synchronize()
     return errs, shapes
 
@@ -404,9 +445,7 @@ def _ar_bound(cfg, weights, B, has_avail):
     n_rows = max(1, A - cfg.n_discrete_agents)
     nbytes = 4 * (sum(t.numel() for t in weights)
                   + B * (A * D + A * adim + n_rows * adim + (A * adim if has_avail else 0) + 2 * A))
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return _roof(nbytes, flops, F32_SIMT_FLOPS)
 
 
 def phase2_ar_decode(torch):
@@ -517,9 +556,7 @@ def _step_bound(cfg, weights, B, i):
     nbytes = 4 * (sum(t.numel() for t in weights)
                   + B * (in_dim + D + adim + 4 * nb * D * (i + 1)))
     flops = B * (2 * (in_dim * D + 10 * nb * D * D + D * D + D * adim) + 8 * nb * D * (i + 1))
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return _roof(nbytes, flops, F32_SIMT_FLOPS)
 
 
 def phase2_decode_step(torch):

@@ -7,248 +7,497 @@
 //   out[n] = softmax(mask(q[n] k[n]^T / sqrt(Dh))) v[n]
 //
 // with f32 scores, a causal tril and/or a kv mask (shared (Lk,) row or one
-// row per batch b = n / H), masked scores set to -1e9 (not -inf, so a fully
-// masked row gives the uniform softmax of the XLA path), and under bf16
-// inputs the probabilities rounded to bf16 before P.V as the XLA path does.
+// row per batch b = n / H), masked scores set to -1e9 (not -inf, so a row
+// with no valid key gives the uniform softmax over all Lk keys, as the XLA
+// path does), and under bf16 inputs the probabilities rounded to bf16 before
+// P.V as the XLA path does.  Operands are read and written by their strides
+// (unit stride along Dh), so the head-split views of the model need no copy.
 //
-// What bounds it.  A row n does 2 * Lq * Lk * Dh multiply-adds against
-// (2 * Lk + 2 * Lq) * Dh values moved.  The cached decode (Lq = 1, 404 of
-// the 406 launches of a serving dispatch) does about 1 flop a byte: bytes
-// bound it.  The encoder (Lq = Lk = 101, Dh = 32) does 25 flops a byte in
-// f32, just above the 20 at which f32 arithmetic outside the tensor cores
-// (67 TFLOP/s against 3.35 TB/s) takes over.  So each input is read from
-// device memory once and nothing but the output is written: scores and
-// probabilities live in registers, one warp per query row, reduced with warp
-// shuffles.
+// What bounds it on this card.  A row n does 2 * Lq * Lk * Dh multiply-adds
+// against (2 * Lk + 2 * Lq) * Dh values moved.
 //
-//  - attn_fwd_staged (Lq > 1: encoder self-attention, causal decoder): a
-//    block owns row n and up to kRowsPerBlock query rows; K and V of row n
-//    are staged once in shared memory as f32 (101 x 32 x 4 B = 12.9 KB each)
-//    and every warp of the block reuses them.
-//  - attn_fwd_rows (Lq = 1: every cached-decode step): a query row reuses
-//    nothing, so each warp takes its own row n and reads K and V straight
-//    from device memory; a block holds kWarps rows so it is not one warp.
+//  - attn_fwd_mma (Lq > 1: encoder self-attention, both causal decoder
+//    attentions of the teacher-forced passes).  At Lq = Lk = 101, Dh = 32 a
+//    row is 25 flops a byte in f32: operations bound it, and the tensor
+//    cores are the only unit fast enough (3xTF32: 495 / 3 TFLOP/s against 67
+//    outside them).  A block owns row n and up to 128 query rows, a warp for
+//    each 16 (the M of mma.sync): 7 warps at Lq = 101, so K and V are read
+//    once a row.  Q, K and V are staged into shared memory with cp.async, 16
+//    bytes a thread.  S = Q K^T and O = P V are mma.sync products
+//    (attention_common.cuh) in a loop over 32-key chunks: the softmax runs
+//    on the accumulator fragments in registers (row max and sum across a
+//    quad of lanes, the key mask as bits, no branches), online in f32 (FA2:
+//    one pass, P V of exp(S - m) rescaled as the max grows, one reciprocal a
+//    row at the end); in bf16 a first pass finds the max and sum and a
+//    second recomputes S, so that P is normalised and rounded before P V.  P
+//    is reused from registers as the A operand.  Under causal, key chunks
+//    above the diagonal are neither staged nor multiplied; that is exact
+//    while the row has a visible valid key (exp(-1e9 - m) is exactly 0 in
+//    f32); a row with none averages V over all Lk keys, read from device
+//    memory on that rare path.  What holds it at ~6x its bound (PERF.md):
+//    per-block latency, with ~14 warps an SM at these shapes to hide it.
+//  - attn_fwd_decode (Lq = 1: every cached-decode step).  About 1 flop a
+//    byte: bytes and latency bound it.  The keys of a row are split over the
+//    CTAs of a cluster (1 or 4, so that small batches still spread over
+//    the SMs) and the 4 warps of each.  A warp reads its keys' mask bytes
+//    first and compacts the valid ones, so keys the mask hides are neither
+//    read nor multiplied (half of them on average in the cached decode); 8
+//    lanes read one key row with 16-byte loads (one warp load covers 4 f32
+//    keys of Dh = 32) and reduce its dot product among themselves.  The
+//    row's max and sum are merged across warps in shared memory and across
+//    the cluster in distributed shared memory; then P (rounded under bf16)
+//    times V, merged the same way.
 //
-// Limits: Lk <= kMaxLk (scores per lane in registers), Dh <= kMaxDh.
-// The launcher returns the launch's cudaError_t; it neither allocates nor
-// synchronises.
+// Limits: Lk <= kMaxL, Dh <= kMaxDh, any Lq (shared memory for every such
+// shape fits the card's opt-in maximum).  The launcher returns the launch's
+// cudaError_t; it neither allocates nor synchronises.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include <cooperative_groups.h>
+
+#include "attention_common.cuh"
 
 namespace {
 
-constexpr int kWarp = 32;
-constexpr int kMaxLk = 128;
-constexpr int kMaxDh = 128;
-constexpr int kKeyTiles = kMaxLk / kWarp;   // scores held per lane
-constexpr int kDimTiles = kMaxDh / kWarp;   // output dims held per lane
-constexpr int kWarps = 4;
-constexpr int kRowsPerBlock = 32;           // staged path: query rows a block owns
-constexpr float kNegInf = -1e9f;            // ops/attention.py NEG_INF
-constexpr unsigned kFull = 0xffffffffu;
+using namespace attn;
+namespace cg = cooperative_groups;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+constexpr int kWarps = 4;                    // attn_fwd_decode
+constexpr int kRowsPerBlock = kMaxL;         // query rows a block of attn_fwd_mma owns, 16 a warp
+constexpr int kMmaWarps = kRowsPerBlock / 16;
 
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+struct FwdParams {
+  Operand q, k, v, out;
+  const unsigned char* mask;
+  int Lq, Lk, Dh, H, causal, mask_mode, vec;
+  float scale;
+};
+
+template <typename T>
+__host__ __device__ inline size_t mma_smem_bytes(int Lq, int Lk, int Dh) {
+  const int q_rows = round_up(Lq < kRowsPerBlock ? Lq : kRowsPerBlock, 16);
+  return sizeof(T) * (size_t)(q_rows + 2 * round_up(Lk, 8 * kNT)) * row_stride<T>(Dh);
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = kWarp / 2; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
-  return x;
-}
+// DT: 8-wide head-dim tiles of the output a thread accumulates (Dh <= 8 DT).
+template <typename T, int DT>
+__global__ void __launch_bounds__(kMmaWarps * kWarp)
+attn_fwd_mma(const FwdParams p) {
+  using M = Mma<T>;
+  constexpr int kT = M::kK / 8;   // accumulator tiles a product's depth spans
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ unsigned mw_s[kMaxL / kWarp];   // valid keys, as bits
 
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = kWarp / 2; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
-}
+  const int n = blockIdx.y;
+  const int q0 = blockIdx.x * kRowsPerBlock;
+  const int rows = min(kRowsPerBlock, p.Lq - q0);
+  const int q_rows = round_up(p.Lq < kRowsPerBlock ? p.Lq : kRowsPerBlock, 16);
+  const int kv_end = p.causal ? min(p.Lk, q0 + rows) : p.Lk;   // keys any row here sees
+  const int kv_pad = round_up(kv_end, 8 * kNT);   // whole chunks
+  const int dpad = round_up(p.Dh, M::kK);
+  const int ld = row_stride<T>(p.Dh);
+  const int kv_rows = round_up(p.Lk, 8 * kNT);
+  T* q_s = reinterpret_cast<T*>(smem_raw);
+  T* k_s = q_s + q_rows * ld;
+  T* v_s = k_s + kv_rows * ld;
 
-// The kv-mask row of flattened row n (nullptr when there is no mask).
-__device__ __forceinline__ const unsigned char* mask_row(const unsigned char* mask,
-                                                         int mask_mode, int n, int H,
-                                                         int Lk) {
-  if (mask_mode == 1) return mask;
-  if (mask_mode == 2) return mask + (size_t)(n / H) * Lk;
-  return nullptr;
-}
+  // Pad rows: Q's and K's only reach scores that are discarded or replaced
+  // by -inf (a select, so even NaN there is harmless); V's meet P = 0, and
+  // 0 x NaN is NaN, so they are zeroed.
+  stage<T>(q_s, ld, p.q, n, p.H, q0, rows, rows, p.Dh, dpad, p.vec);
+  stage<T>(k_s, ld, p.k, n, p.H, 0, kv_end, kv_end, p.Dh, dpad, p.vec);
+  stage<T>(v_s, ld, p.v, n, p.H, 0, kv_end, kv_pad, p.Dh, dpad, p.vec);
+  cp_async_commit();
+  mask_words(mw_s, mask_row(p.mask, p.mask_mode, n, p.H, p.Lk), p.Lk);
+  cp_async_wait<0>();
+  __syncthreads();
 
-// One warp computes one query row.  q_s holds the row as f32 in shared
-// memory (read as a broadcast).  Lane l scores keys l, l + 32, ...; K is read
-// as K[j * k_stride + d] and V as V[j * v_stride + d], from shared memory
-// (KV = float) or device memory (KV = T).  All control flow that reaches a
-// shuffle is uniform across the warp.
-template <typename T, typename KV>
-__device__ void attend_row(const float* q_s, const KV* K, int k_stride, const KV* V,
-                           int v_stride, const unsigned char* mask, int Lk, int Dh,
-                           int qrow, bool causal, float scale, T* out) {
-  const int lane = threadIdx.x % kWarp;
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int t4 = lane & 3;
+  const int r0 = warp * 16;               // this warp's first row in the block
+  if (r0 >= rows) return;
+  const int qi0 = q0 + r0 + (lane >> 2);  // the query rows of this thread's fragments: qi0, qi0 + 8
+  // 32-key chunks this warp multiplies: all staged ones, or up to its diagonal
+  const int nchunks = ((p.causal ? min(kv_pad, q0 + r0 + 16) : kv_pad) + 8 * kNT - 1) / (8 * kNT);
+  constexpr bool kRoundP = sizeof(T) == 2;   // bf16: P is normalised and rounded before P.V
+  const auto a_q = [&](int kc) { return M::a_rows(q_s, ld, r0, kc, lane, true); };
 
-  float s[kKeyTiles];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+  float o[DT][4];
 #pragma unroll
-  for (int t = 0; t < kKeyTiles; ++t) {
-    const int j = t * kWarp + lane;
-    float x = -INFINITY;  // no key here: weight exactly 0
-    if (j < Lk) {
-      const KV* kj = K + (size_t)j * k_stride;
-      float dot = 0.f;
-      for (int d = 0; d < Dh; ++d) dot = fmaf(q_s[d], to_f32(kj[d]), dot);
-      x = dot * scale;
-      if ((causal && j > qrow) || (mask != nullptr && mask[j] == 0)) x = kNegInf;
+  for (int d = 0; d < DT; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+  unsigned live = 0;
+  float s[kNT][4];
+  // f32: one pass, online softmax (FA2), P.V of exp(S - m) rescaled as m
+  // grows, one reciprocal a row at the end.  bf16: this pass finds m and l
+  // only; the second recomputes S and multiplies the rounded P.
+  for (int c = 0; c < nchunks; ++c) {
+    live |= chunk_scores<T, false>(s, a_q, k_s, ld, c, kv_pad, dpad, qi0, p.Lk, p.causal, mw_s,
+                                   p.scale, lane);
+    online_softmax(s, m, l, alpha);
+    if constexpr (!kRoundP) {
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+        o[d][0] *= alpha[0]; o[d][1] *= alpha[0];
+        o[d][2] *= alpha[1]; o[d][3] *= alpha[1];
+      }
+#pragma unroll
+      for (int u = 0; u < kNT / kT; ++u) {
+        const Frag a = M::a_acc(s[u * kT], s[u * kT + kT - 1]);
+#pragma unroll
+        for (int d = 0; d < DT; ++d) {
+          if (8 * d < dpad) {
+            M::mma(o[d], a, M::b_cols(v_s, ld, 8 * kNT * c + u * M::kK, 8 * d, lane));
+          }
+        }
+      }
     }
-    s[t] = x;
+  }
+  l[0] = quad_sum(l[0]);
+  l[1] = quad_sum(l[1]);
+  if constexpr (kRoundP) {
+    for (int c = 0; c < nchunks; ++c) {
+      chunk_scores<T, false>(s, a_q, k_s, ld, c, kv_pad, dpad, qi0, p.Lk, p.causal, mw_s,
+                             p.scale, lane);
+#pragma unroll
+      for (int u = 0; u < kNT; ++u) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[u][e] = exp_sub(s[u][e], m[e >> 1]) / l[e >> 1];
+      }
+#pragma unroll
+      for (int u = 0; u < kNT / 2; ++u) {
+        const Frag a = M::a_acc(s[2 * u], s[2 * u + 1]);   // rounds P to bf16
+#pragma unroll
+        for (int d = 0; d < DT; ++d) {
+          if (8 * d < dpad) {
+            M::mma(o[d], a, M::b_cols(v_s, ld, 8 * kNT * c + 16 * u, 8 * d, lane));
+          }
+        }
+      }
+    }
   }
 
-  float m = s[0];
+  bool row_live[2];
 #pragma unroll
-  for (int t = 1; t < kKeyTiles; ++t) m = fmaxf(m, s[t]);
-  m = warp_max(m);
-  float sum = 0.f;
-#pragma unroll
-  for (int t = 0; t < kKeyTiles; ++t) {
-    s[t] = expf(s[t] - m);
-    sum += s[t];
+  for (int h = 0; h < 2; ++h) {
+    row_live[h] = quad_max((live & (kRowBits << (2 * h))) ? 1.f : 0.f) > 0.f;
   }
-  sum = warp_sum(sum);
 #pragma unroll
-  for (int t = 0; t < kKeyTiles; ++t) s[t] = to_f32(from_f32<T>(s[t] / sum));
+  for (int h = 0; h < 2; ++h) {
+    const int i = qi0 + 8 * h;
+    if (i >= p.Lq) continue;
+    T* orow = row_ptr<T>(p.out, n, p.H, i);
+    if (row_live[h]) {
+      const float inv = kRoundP ? 1.f : 1.f / l[h];
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * d + 2 * t4 + e;
+          if (col < p.Dh) orow[col] = from_f32<T>(o[d][2 * h + e] * inv);
+        }
+      }
+    } else {
+      // no valid key is visible: the uniform softmax over all Lk keys, keys
+      // after the row included, as the XLA path gives
+      const float w = round_to<T>(1.f / (float)p.Lk);
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * d + 2 * t4 + e;
+          if (col < p.Dh) {
+            float acc = 0.f;
+            for (int j = 0; j < p.Lk; ++j) {
+              acc = fmaf(w, to_f32(row_ptr<T>(p.v, n, p.H, j)[col]), acc);
+            }
+            orow[col] = from_f32<T>(acc);
+          }
+        }
+      }
+    }
+  }
+}
 
-  float acc[kDimTiles];
+// ------------------------------------------------------------- Lq = 1
+
+constexpr int kGroup = 8;   // lanes that read one key row
+
+// x[0 .. E) = row[d0 .. d0 + E) as f32, 0 past Dh.
+template <typename T>
+__device__ __forceinline__ void load_slice(const T* row, int d0, int Dh, bool vec,
+                                           float (&x)[16 / sizeof(T)]) {
+  constexpr int E = 16 / sizeof(T);
+  if (vec) {
+    const uint4 u = *reinterpret_cast<const uint4*>(row + d0);
+    const T* e = reinterpret_cast<const T*>(&u);
 #pragma unroll
-  for (int c = 0; c < kDimTiles; ++c) acc[c] = 0.f;
+    for (int i = 0; i < E; ++i) x[i] = to_f32(e[i]);
+  } else {
 #pragma unroll
-  for (int t = 0; t < kKeyTiles; ++t) {
-    if (t * kWarp < Lk) {
-      const int n_src = min(kWarp, Lk - t * kWarp);
-      for (int src = 0; src < n_src; ++src) {
-        const float p = __shfl_sync(kFull, s[t], src);
-        const KV* vj = V + (size_t)(t * kWarp + src) * v_stride;
+    for (int i = 0; i < E; ++i) x[i] = d0 + i < Dh ? to_f32(row[d0 + i]) : 0.f;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWarps * kWarp)
+attn_fwd_decode(const FwdParams p, int split) {
+  constexpr int E = 16 / sizeof(T);              // elements a 16-byte load holds
+  constexpr int R = kMaxDh / (kGroup * E);       // loads a lane makes per key row, at most
+  __shared__ float s_s[kMaxL];                   // scores, then probabilities, by key
+  __shared__ int lst[kWarps][kWarp];             // each warp's valid keys, compacted
+  __shared__ float red[kWarps];
+  __shared__ float part[2];                      // this CTA's (max, sum), read by the cluster
+  __shared__ float o_w[kWarps][kMaxDh];
+  __shared__ float o_c[kMaxDh];                  // this CTA's share of the output
+
+  const int rank = blockIdx.x % split, n = blockIdx.x / split;
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int grp = lane / kGroup, gl = lane % kGroup;
+  const bool vec = p.vec;
+
+  // this warp's keys: a contiguous share of the CTA's share of the row
+  const int chunk = (p.Lk + split - 1) / split;
+  const int c0 = min(p.Lk, rank * chunk), c1 = min(p.Lk, c0 + chunk);
+  const int wchunk = (c1 - c0 + kWarps - 1) / kWarps;
+  const int w0 = min(c1, c0 + warp * wchunk), w1 = min(c1, w0 + wchunk);
+  const unsigned char* mrow = mask_row(p.mask, p.mask_mode, n, p.H, p.Lk);
+  const int j = w0 + lane;
+  const bool live = j < w1 && !(p.causal && j > 0) && (mrow == nullptr || mrow[j]);
+  const unsigned bits = __ballot_sync(kFull, live);
+  const int nlive = __popc(bits);
+  if (live) lst[warp][__popc(bits & ((1u << lane) - 1))] = j;
+  __syncwarp();
+
+  float qv[R][E];
+  const T* qrow = row_ptr<T>(p.q, n, p.H, 0);
 #pragma unroll
-        for (int c = 0; c < kDimTiles; ++c) {
-          const int d = c * kWarp + lane;
-          if (d < Dh) acc[c] = fmaf(p, to_f32(vj[d]), acc[c]);
+  for (int r = 0; r < R; ++r) {
+    const int d0 = (r * kGroup + gl) * E;
+    if (d0 < p.Dh) {
+      load_slice<T>(qrow, d0, p.Dh, vec, qv[r]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e) qv[r][e] = 0.f;
+    }
+  }
+
+  // scores of the valid keys, four at a time (one a group of 8 lanes)
+  float mx = -INFINITY;
+  for (int t0 = 0; t0 < nlive; t0 += kWarp / kGroup) {
+    const int t = t0 + grp;
+    float dot = 0.f;
+    if (t < nlive) {
+      const T* krow = row_ptr<T>(p.k, n, p.H, lst[warp][t]);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int d0 = (r * kGroup + gl) * E;
+        if (d0 < p.Dh) {
+          float kx[E];
+          load_slice<T>(krow, d0, p.Dh, vec, kx);
+#pragma unroll
+          for (int e = 0; e < E; ++e) dot = fmaf(qv[r][e], kx[e], dot);
+        }
+      }
+    }
+    dot += __shfl_xor_sync(kFull, dot, 1);
+    dot += __shfl_xor_sync(kFull, dot, 2);
+    dot += __shfl_xor_sync(kFull, dot, 4);
+    if (t < nlive) {
+      const float x = dot * p.scale;
+      if (gl == 0) s_s[lst[warp][t]] = x;
+      mx = fmaxf(mx, x);
+    }
+  }
+  mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 8));
+  mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 16));
+  if (lane == 0) red[warp] = mx;
+  __syncthreads();
+  float m_c = red[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) m_c = fmaxf(m_c, red[w]);
+  float e_l = lane < nlive ? expf(s_s[lst[warp][lane]] - m_c) : 0.f;
+#pragma unroll
+  for (int o = kWarp / 2; o > 0; o >>= 1) e_l += __shfl_xor_sync(kFull, e_l, o);
+  __syncthreads();   // every warp has read red[] as maxima
+  if (lane == 0) red[warp] = e_l;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    part[0] = m_c;
+    part[1] = red[0] + red[1] + red[2] + red[3];
+  }
+
+  // the row's max and sum over the cluster
+  cg::cluster_group cluster = cg::this_cluster();
+  if (split > 1) cluster.sync(); else __syncthreads();
+  float M = -INFINITY, L = 0.f;
+  for (int r = 0; r < split; ++r) {
+    const float* pr = split > 1 ? cluster.map_shared_rank(part, r) : part;
+    M = fmaxf(M, pr[0]);
+  }
+  for (int r = 0; r < split; ++r) {
+    const float* pr = split > 1 ? cluster.map_shared_rank(part, r) : part;
+    if (pr[0] != -INFINITY) L += pr[1] * expf(pr[0] - M);
+  }
+  const bool any_live = M != -INFINITY;
+
+  float acc[R][E];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[r][e] = 0.f;
+  }
+  if (any_live) {
+    if (lane < nlive) {
+      const int key = lst[warp][lane];
+      s_s[key] = round_to<T>(expf(s_s[key] - M) / L);
+    }
+    __syncwarp();
+    for (int t = grp; t < nlive; t += kWarp / kGroup) {
+      const int key = lst[warp][t];
+      const float pk = s_s[key];
+      const T* vrow = row_ptr<T>(p.v, n, p.H, key);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int d0 = (r * kGroup + gl) * E;
+        if (d0 < p.Dh) {
+          float vx[E];
+          load_slice<T>(vrow, d0, p.Dh, vec, vx);
+#pragma unroll
+          for (int e = 0; e < E; ++e) acc[r][e] = fmaf(pk, vx[e], acc[r][e]);
         }
       }
     }
   }
 #pragma unroll
-  for (int c = 0; c < kDimTiles; ++c) {
-    const int d = c * kWarp + lane;
-    if (d < Dh) out[d] = from_f32<T>(acc[c]);
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      acc[r][e] += __shfl_xor_sync(kFull, acc[r][e], 8);
+      acc[r][e] += __shfl_xor_sync(kFull, acc[r][e], 16);
+    }
   }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kWarps * kWarp)
-attn_fwd_staged(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                const unsigned char* __restrict__ mask, T* __restrict__ out, int Lq, int Lk,
-                int Dh, int H, int causal, int mask_mode) {
-  extern __shared__ float smem[];
-  const int n = blockIdx.x;
-  const int k_stride = Dh + 1;  // odd stride: lanes reading keys j..j+31 hit 32 banks
-  float* k_s = smem;
-  float* v_s = k_s + Lk * k_stride;
-  float* q_s = v_s + Lk * Dh;
-
-  const T* kn = k + (size_t)n * Lk * Dh;
-  const T* vn = v + (size_t)n * Lk * Dh;
-  for (int idx = threadIdx.x; idx < Lk * Dh; idx += blockDim.x) {
-    k_s[(idx / Dh) * k_stride + idx % Dh] = to_f32(kn[idx]);
-    v_s[idx] = to_f32(vn[idx]);
+  if (grp == 0) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const int d = (r * kGroup + gl) * E + e;
+        if (d < p.Dh) o_w[warp][d] = acc[r][e];
+      }
+    }
   }
   __syncthreads();
-
-  const int warp = threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  float* qw = q_s + warp * Dh;
-  const unsigned char* m = mask_row(mask, mask_mode, n, H, Lk);
-  const float scale = 1.f / sqrtf((float)Dh);
-  const int row_end = min((int)(blockIdx.y + 1) * kRowsPerBlock, Lq);
-  for (int r = blockIdx.y * kRowsPerBlock + warp; r < row_end; r += kWarps) {
-    const size_t row = (size_t)n * Lq + r;
-    for (int d = lane; d < Dh; d += kWarp) qw[d] = to_f32(q[row * Dh + d]);
-    __syncwarp();
-    attend_row<T, float>(qw, k_s, k_stride, v_s, Dh, m, Lk, Dh, r, causal != 0, scale,
-                         out + row * Dh);
-    __syncwarp();  // every lane is done with qw before the next row overwrites it
+  for (int d = threadIdx.x; d < p.Dh; d += blockDim.x) {
+    o_c[d] = o_w[0][d] + o_w[1][d] + o_w[2][d] + o_w[3][d];
   }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kWarps * kWarp)
-attn_fwd_rows(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              const unsigned char* __restrict__ mask, T* __restrict__ out, int N, int Lq,
-              int Lk, int Dh, int H, int causal, int mask_mode) {
-  __shared__ float q_s[kWarps][kMaxDh];
-  const int warp = threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  const size_t row = (size_t)blockIdx.x * kWarps + warp;  // flattened (n, query row)
-  if (row >= (size_t)N * Lq) return;                      // the whole warp leaves
-  const int n = (int)(row / Lq);
-  const int r = (int)(row % Lq);
-  for (int d = lane; d < Dh; d += kWarp) q_s[warp][d] = to_f32(q[row * Dh + d]);
-  __syncwarp();
-  const size_t kv_off = (size_t)n * Lk * Dh;
-  attend_row<T, T>(q_s[warp], k + kv_off, Dh, v + kv_off, Dh,
-                   mask_row(mask, mask_mode, n, H, Lk), Lk, Dh, r, causal != 0,
-                   1.f / sqrtf((float)Dh), out + row * Dh);
-}
-
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* out,
-                   int N, int Lq, int Lk, int Dh, int H, int causal, int mask_mode,
-                   cudaStream_t stream) {
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const unsigned char* mt = static_cast<const unsigned char*>(mask);
-  T* ot = static_cast<T*>(out);
-  if (Lq == 1) {
-    const long rows = (long)N * Lq;
-    const unsigned blocks = (unsigned)((rows + kWarps - 1) / kWarps);
-    attn_fwd_rows<T><<<blocks, kWarps * kWarp, 0, stream>>>(qt, kt, vt, mt, ot, N, Lq, Lk,
-                                                             Dh, H, causal, mask_mode);
-  } else {
-    const size_t smem = sizeof(float) * ((size_t)Lk * (Dh + 1) + (size_t)Lk * Dh +
-                                         (size_t)kWarps * Dh);
-    if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          attn_fwd_staged<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (e != cudaSuccess) return e;
+  if (split > 1) cluster.sync(); else __syncthreads();
+  if (rank == 0) {
+    T* orow = row_ptr<T>(p.out, n, p.H, 0);
+    if (any_live) {
+      for (int d = threadIdx.x; d < p.Dh; d += blockDim.x) {
+        float o = 0.f;
+        for (int r = 0; r < split; ++r) o += (split > 1 ? cluster.map_shared_rank(o_c, r) : o_c)[d];
+        orow[d] = from_f32<T>(o);
+      }
+    } else {
+      // no valid key: the uniform softmax over all Lk keys, as the XLA path gives
+      const float w = round_to<T>(1.f / (float)p.Lk);
+      for (int d = threadIdx.x; d < p.Dh; d += blockDim.x) {
+        float o = 0.f;
+        for (int jj = 0; jj < p.Lk; ++jj) o = fmaf(w, to_f32(row_ptr<T>(p.v, n, p.H, jj)[d]), o);
+        orow[d] = from_f32<T>(o);
+      }
     }
-    const dim3 grid((unsigned)N, (unsigned)((Lq + kRowsPerBlock - 1) / kRowsPerBlock));
-    attn_fwd_staged<T><<<grid, kWarps * kWarp, smem, stream>>>(qt, kt, vt, mt, ot, Lq, Lk,
-                                                                Dh, H, causal, mask_mode);
   }
+  if (split > 1) cluster.sync();   // rank 0 has read every CTA's o_c before any exits
+}
+
+template <typename Kernel>
+cudaError_t opt_in_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <typename T, int DT>
+cudaError_t launch_mma(const FwdParams& p, int N, cudaStream_t stream) {
+  const size_t smem = mma_smem_bytes<T>(p.Lq, p.Lk, p.Dh);
+  const cudaError_t e = opt_in_smem(attn_fwd_mma<T, DT>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((unsigned)((p.Lq + kRowsPerBlock - 1) / kRowsPerBlock), (unsigned)N);
+  const int warps = (min(p.Lq, kRowsPerBlock) + 15) / 16;
+  attn_fwd_mma<T, DT><<<grid, warps * kWarp, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch(const FwdParams& p, int N, cudaStream_t stream) {
+  if (p.Lq == 1) {
+    // CTAs a row: one from N = 128 up (256 rows at bucket 128), else a
+    // cluster of 4, so that a small batch still covers more SMs than it has
+    // rows (chip_smoke.py times N = 256, 64 and 16)
+    const int split = N >= 128 ? 1 : 4;
+    if (split == 1) {
+      attn_fwd_decode<T><<<(unsigned)N, kWarps * kWarp, 0, stream>>>(p, 1);
+      return cudaGetLastError();
+    }
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)(N * split));
+    cfg.blockDim = dim3(kWarps * kWarp);
+    cfg.dynamicSmemBytes = 0;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)split;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t e = cudaLaunchKernelEx(&cfg, attn_fwd_decode<T>, p, split);
+    return e != cudaSuccess ? e : cudaGetLastError();
+  }
+  const int dpad = round_up(p.Dh, Mma<T>::kK);
+  if (dpad <= 32) return launch_mma<T, 4>(p, N, stream);
+  if (dpad <= 64) return launch_mma<T, 8>(p, N, stream);
+  return launch_mma<T, 16>(p, N, stream);
 }
 
 }  // namespace
 
-// q (N, Lq, Dh), k and v (N, Lk, Dh), out (N, Lq, Dh), all contiguous and of
-// one dtype (0 = f32, 1 = bf16).  mask_mode: 0 none, 1 one shared (Lk,) row,
-// 2 one (Lk,) row per batch index n / H.  Mask bytes are 0 (masked) or not.
+// q (N, Lq, Dh), k and v (N, Lk, Dh), out (N, Lq, Dh) as (B, H, L, Dh)
+// operands with N = B * H: strides holds each one's element strides along
+// b, h and l (q, k, v, out: 12 values); Dh has unit stride.  One dtype for
+// all (0 = f32, 1 = bf16).  mask_mode: 0 none, 1 one shared (Lk,) row, 2 one
+// (Lk,) row per batch index n / H.  Mask bytes are 0 (masked) or not.
 extern "C" cudaError_t mat_attention_fwd(const void* q, const void* k, const void* v,
-                                         const void* mask, void* out, int N, int Lq, int Lk,
+                                         const void* mask, void* out,
+                                         const long long* strides, int N, int Lq, int Lk,
                                          int Dh, int H, int causal, int mask_mode, int dtype,
                                          void* stream) {
-  if (N < 1 || Lq < 1 || Lk < 1 || Lk > kMaxLk || Dh < 1 || Dh > kMaxDh || H < 1 ||
-      mask_mode < 0 || mask_mode > 2 || (mask_mode != 0 && mask == nullptr) ||
-      (causal && Lq != Lk)) {
+  if (N < 1 || Lq < 1 || Lk < 1 || Lk > kMaxL || Dh < 1 || Dh > kMaxDh ||
+      H < 1 || N % H != 0 || mask_mode < 0 || mask_mode > 2 ||
+      (mask_mode != 0 && mask == nullptr) || (causal && Lq != Lk) || strides == nullptr ||
+      (dtype != 0 && dtype != 1)) {
     return cudaErrorInvalidValue;
   }
+  FwdParams p;
+  void* ptrs[4] = {const_cast<void*>(q), const_cast<void*>(k), const_cast<void*>(v), out};
+  Operand* ops[4] = {&p.q, &p.k, &p.v, &p.out};
+  for (int i = 0; i < 4; ++i) *ops[i] = Operand{ptrs[i], strides[3 * i], strides[3 * i + 1],
+                                                strides[3 * i + 2]};
+  p.mask = static_cast<const unsigned char*>(mask);
+  p.Lq = Lq; p.Lk = Lk; p.Dh = Dh; p.H = H; p.causal = causal; p.mask_mode = mask_mode;
+  p.scale = 1.f / sqrtf((float)Dh);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(q, k, v, mask, out, N, Lq, Lk, Dh, H, causal, mask_mode, s);
-  if (dtype == 1) {
-    return launch<__nv_bfloat16>(q, k, v, mask, out, N, Lq, Lk, Dh, H, causal, mask_mode, s);
+  if (dtype == 0) {
+    p.vec = Dh % 4 == 0 && rows_aligned<float>(p.q) && rows_aligned<float>(p.k) &&
+            rows_aligned<float>(p.v);
+    return launch<float>(p, N, s);
   }
-  return cudaErrorInvalidValue;
+  p.vec = Dh % 8 == 0 && rows_aligned<__nv_bfloat16>(p.q) && rows_aligned<__nv_bfloat16>(p.k) &&
+          rows_aligned<__nv_bfloat16>(p.v);
+  return launch<__nv_bfloat16>(p, N, s);
 }
 
 // The limits the wrapper checks against, so the two cannot drift apart.
-extern "C" int mat_attention_fwd_max_lk() { return kMaxLk; }
+extern "C" int mat_attention_fwd_max_lk() { return kMaxL; }
 extern "C" int mat_attention_fwd_max_dh() { return kMaxDh; }

@@ -43,9 +43,8 @@ def multi_head_attention(
         )
     from mat_dcml_tpu_torch.ops.cuda_attention import fused_masked_attention
 
-    return fused_masked_attention(
-        q.contiguous(), k.contiguous(), v.contiguous(), causal=causal, kv_mask=kv_mask
-    )
+    # the head-split views go in as they are: the kernels take strides
+    return fused_masked_attention(q, k, v, causal=causal, kv_mask=kv_mask)
 
 
 def split_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:

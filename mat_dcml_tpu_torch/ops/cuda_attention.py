@@ -10,8 +10,10 @@ the saved ``q, k, v`` (as the TPU kernel does) instead of saving them.
 
 ``fused_masked_attention`` takes the plain version for a tensor on the CPU
 (autograd runs through it) and the kernels for a tensor on a CUDA device; it
-never falls back from a kernel.  ``launches`` and ``bwd_launches`` count
-kernel launches of the forward and the backward, and nothing else.
+never falls back from a kernel.  The kernels read and write every operand by
+its strides, so the model's head-split views go in without a copy; only the
+last dimension must have unit stride.  ``launches`` and ``bwd_launches``
+count kernel launches of the forward and the backward, and nothing else.
 """
 
 from __future__ import annotations
@@ -77,16 +79,16 @@ def _library(name: str) -> ctypes.CDLL:
         return lib
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     if name == "attention_fwd":
-        lib.mat_attention_fwd.argtypes = [ptr] * 5 + [i32] * 8 + [ptr]
+        lib.mat_attention_fwd.argtypes = [ptr] * 6 + [i32] * 8 + [ptr]
         lib.mat_attention_fwd.restype = i32   # cudaError_t, an int-sized enum
         lib.mat_attention_fwd_max_lk.restype = i32
         lib.mat_attention_fwd_max_dh.restype = i32
     else:
-        lib.mat_attention_bwd.argtypes = [ptr] * 8 + [i32] * 8 + [ptr]
+        lib.mat_attention_bwd.argtypes = [ptr] * 9 + [i32] * 8 + [ptr]
         lib.mat_attention_bwd.restype = i32
         lib.mat_attention_bwd_max_lk.restype = i32
         lib.mat_attention_bwd_max_dh.restype = i32
-        lib.mat_attention_bwd_smem_bytes.argtypes = [i32] * 3
+        lib.mat_attention_bwd_smem_bytes.argtypes = [i32] * 4
         lib.mat_attention_bwd_smem_bytes.restype = ctypes.c_longlong
         lib.mat_attention_bwd_smem_limit.restype = ctypes.c_longlong
     lib._mat_typed = True
@@ -102,6 +104,17 @@ def kernel_limits(name: str = "attention_fwd") -> tuple[int, int]:
     return _limits[name]
 
 
+def _unit_last(t: torch.Tensor) -> bool:
+    return t.stride(-1) == 1 or t.shape[-1] == 1
+
+
+def _strides(*ts) -> ctypes.Array:
+    """Each ``(B, H, L, Dh)`` operand's element strides along b, h and l, in
+    one array for the kernel (0 for a dimension of size 1)."""
+    vals = [st if n > 1 else 0 for t in ts for n, st in zip(t.shape[:3], t.stride()[:3])]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
 def _check(q, k, v, causal, kv_mask, name):
     """Validate a CUDA call; returns ``(mask_mode, mask_ptr)``."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
@@ -114,8 +127,8 @@ def _check(q, k, v, causal, kv_mask, name):
         raise ValueError(f"q, k, v must share one dtype of f32 / bf16, got {q.dtype}, {k.dtype}, {v.dtype}")
     if any(t.device != q.device for t in (k, v)):
         raise ValueError("q, k, v must be on one device")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("q, k, v must be contiguous")
+    if not all(_unit_last(t) for t in (q, k, v)):
+        raise ValueError("q, k, v must be contiguous along Dh (unit last stride)")
     if B * H < 1 or Lq < 1 or Lk < 1:
         raise ValueError(f"empty attention: q {tuple(q.shape)}, k {tuple(k.shape)}")
     max_lk, max_dh = kernel_limits(name)
@@ -142,11 +155,12 @@ def attention_fwd(q, k, v, *, causal=False, kv_mask=None) -> torch.Tensor:
     mask_mode, mask_ptr = _check(q, k, v, causal, kv_mask, "attention_fwd")
     B, H, Lq, Dh = q.shape
     lib = _library("attention_fwd")
-    out = torch.empty_like(q)
+    out = torch.empty_like(q)   # q's layout where q is dense: a head-split q merges for free
     with torch.cuda.device(q.device):
         rc = lib.mat_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
-            B * H, Lq, k.shape[2], Dh, H, int(causal), mask_mode, _DTYPE_CODE[q.dtype],
+            _strides(q, k, v, out), B * H, Lq, k.shape[2], Dh, H, int(causal), mask_mode,
+            _DTYPE_CODE[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if rc != 0:
@@ -161,22 +175,24 @@ def attention_bwd(q, k, v, dout, *, causal=False, kv_mask=None):
     global bwd_launches
     mask_mode, mask_ptr = _check(q, k, v, causal, kv_mask, "attention_bwd")
     if dout.shape != q.shape or dout.dtype != q.dtype or dout.device != q.device \
-            or not dout.is_contiguous():
-        raise ValueError(f"dout must be a contiguous {q.dtype} tensor of q's shape {tuple(q.shape)}")
+            or not _unit_last(dout):
+        raise ValueError(f"dout must be a {q.dtype} tensor of q's shape {tuple(q.shape)}, "
+                         "contiguous along Dh")
     B, H, Lq, Dh = q.shape
     Lk = k.shape[2]
     lib = _library("attention_bwd")
     with torch.cuda.device(q.device):
         if q.device.index not in _smem_limit:
             _smem_limit[q.device.index] = lib.mat_attention_bwd_smem_limit()
-        need, limit = lib.mat_attention_bwd_smem_bytes(Lq, Lk, Dh), _smem_limit[q.device.index]
+        need = lib.mat_attention_bwd_smem_bytes(Lq, Lk, Dh, _DTYPE_CODE[q.dtype])
+        limit = _smem_limit[q.device.index]
         if need > limit:
             raise ValueError(f"attention_bwd needs {need} bytes of shared memory at Lq {Lq}, "
                              f"Lk {Lk}, Dh {Dh}; the card lets a block have {limit}")
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         rc = lib.mat_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), mask_ptr,
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _strides(q, k, v, dout, dq, dk, dv),
             B * H, Lq, Lk, Dh, H, int(causal), mask_mode, _DTYPE_CODE[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream,
         )
@@ -200,7 +216,9 @@ class FusedAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, kv_mask = ctx.saved_tensors
-        dq, dk, dv = attention_bwd(q, k, v, dout.contiguous(), causal=ctx.causal, kv_mask=kv_mask)
+        if not _unit_last(dout):   # an expanded gradient, as from out.sum(): strides of 0
+            dout = dout.contiguous()
+        dq, dk, dv = attention_bwd(q, k, v, dout, causal=ctx.causal, kv_mask=kv_mask)
         return dq, dk, dv, None, None
 
 

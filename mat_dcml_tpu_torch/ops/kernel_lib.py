@@ -1,11 +1,12 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
-Each ``csrc/<name>.cu`` compiles alone into a shared library with a plain
-``extern "C"`` interface; no source includes PyTorch's headers, so a build
-takes seconds and needs neither ``ninja`` nor ``torch.utils.cpp_extension``.
-Libraries go to ``mat_dcml_tpu_torch/_build/`` (listed in ``.gitignore``),
-named by a hash of the source and the flags: a changed source rebuilds, an
-unchanged one loads at once.  A file lock per source keeps concurrent
+Each ``csrc/<name>.cu`` compiles alone (with the ``csrc/*.cuh`` headers it
+includes) into a shared library with a plain ``extern "C"`` interface; no
+source includes PyTorch's headers, so a build takes seconds and needs neither
+``ninja`` nor ``torch.utils.cpp_extension``.  Libraries go to
+``mat_dcml_tpu_torch/_build/`` (listed in ``.gitignore``), named by a hash of
+the source, the headers and the flags: a changed source or header rebuilds,
+an unchanged one loads at once.  A file lock per source keeps concurrent
 processes from building the same library twice, and lets different sources
 build at the same time.
 
@@ -57,6 +58,8 @@ def sources() -> list:
 
 def library_path(name: str) -> Path:
     digest = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):   # shared headers rebuild their includers
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

@@ -42,6 +42,11 @@ def _mask(kind, lk, seed):
         m = np.ones((B, lk), bool)
         m[1] = False
         return m
+    if kind == "first_masked":   # under causal, batch 0's rows 0-2 see no valid key
+        m = rng.uniform(size=(B, lk)) > 0.3
+        m[0, :3] = False
+        m[1, 0] = True
+        return m
     raise ValueError(kind)
 
 
@@ -53,6 +58,7 @@ CASES = [
     (L, False, "per_batch"),
     (L, True, "per_batch"),
     (1, False, "none_valid"),
+    (L, True, "first_masked"),   # rows with no visible valid key average V over all keys
 ]
 
 

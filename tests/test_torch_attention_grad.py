@@ -73,3 +73,25 @@ def test_gradients_match_jax_xla_and_pallas(causal, kind, dtype):
         scale = max(1.0, float(np.abs(b).max()))
         np.testing.assert_allclose(a, b, atol=tol_xla * scale, err_msg=f"d{name} vs XLA")
         np.testing.assert_allclose(a, c, atol=tol_pallas * scale, err_msg=f"d{name} vs Pallas")
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_gradients_with_no_visible_valid_key_match_jax_xla(dtype):
+    """Causal with a per-batch mask whose first keys are masked: batch 0's
+    rows 0-2 see no valid key, so their P is uniform over all L keys (keys
+    after the row included) and their dS is 0, as autograd through the XLA
+    path gives.  Against XLA only: the Pallas backward gives those rows a
+    nonzero dS by design (ROADMAP queue 3)."""
+    q, k, v, _ = _inputs(seed=11, kind=None)
+    mask = np.random.default_rng(12).uniform(size=(B, L)) > 0.3
+    mask[0, :3] = False
+    mask[1, 0] = True
+    tdt, jdt = {"f32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}[dtype]
+    mine = _port_grads(q, k, v, True, mask, tdt)
+    jm = jnp.asarray(mask)
+    xla = _jax_grads(lambda q, k, v: jax_mha(q, k, v, causal=True, kv_mask=jm, impl="xla"),
+                     q, k, v, jdt)
+    for name, a, b in zip("qkv", mine, xla):
+        scale = max(1.0, float(np.abs(b).max()))
+        np.testing.assert_allclose(a, b, atol=TOL[dtype][0] * scale, err_msg=f"d{name} vs XLA")
+    assert np.abs(mine[2][0]).max() > 0   # the rows with no valid key still reach dv

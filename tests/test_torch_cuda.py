@@ -55,6 +55,10 @@ def cuda():
     (128, 1, 101, 32, False, "shared"),        # cached decode step
     (4, 101, 101, 32, True, None),             # teacher-forced decoder
     (8, 1, 101, 32, False, "per_batch"),
+    (32, 1, 101, 32, False, "shared"),         # bucket 32: 64 rows, clusters of 4 blocks
+    (32, 1, 101, 32, False, "per_batch"),
+    (1, 1, 101, 32, False, "shared"),          # bucket 1: 2 rows
+    (1, 1, 101, 32, False, "per_batch"),
     (3, 7, 128, 128, False, "per_batch"),      # the kernel's limits
     (2, 5, 5, 8, True, "none_valid"),
 ])
@@ -97,6 +101,8 @@ BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-7}
     (4, 101, 101, 32, False, "shared"),
     (8, 1, 101, 32, False, "per_batch"),
     (3, 7, 128, 64, False, "per_batch"),       # Lk at the kernel's limit
+    (3, 113, 128, 128, False, "per_batch"),    # f32: two planes in shared memory
+    (2, 128, 105, 128, False, "shared"),
     (2, 5, 5, 8, True, "none_valid"),          # fully masked rows: no dq, dk
 ])
 def test_backward_kernel_matches_plain(cuda, dtype, B, Lq, Lk, Dh, causal, mask):
@@ -143,11 +149,143 @@ def test_backward_kernel_rejects_what_it_cannot_hold(cuda):
     k = torch.zeros(1, 1, 129, 32, device=cuda)
     with pytest.raises(ValueError, match="at most Lk"):
         cuda_attention.attention_bwd(q, k, k, q)
+    # every shape within those limits fits an H100's shared memory (f32 at
+    # L = Dh = 128 keeps two planes); a card that lets a block have less
+    # gets the error
     q = torch.zeros(1, 1, 128, 128, device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        cuda_attention.attention_bwd(q, q, q, q)
+    cuda_attention.attention_bwd(q, q, q, q)
+    limits = cuda_attention._smem_limit
+    saved = limits[q.device.index]
+    limits[q.device.index] = 48 * 1024
+    try:
+        with pytest.raises(ValueError, match="shared memory"):
+            cuda_attention.attention_bwd(q, q, q, q)
+    finally:
+        limits[q.device.index] = saved
     with pytest.raises(ValueError, match="dout"):
         cuda_attention.attention_bwd(q, q, q, q[..., :64].contiguous())
+
+
+# ------------------------------------------------- tile edges and layouts
+
+EDGES = [1, 15, 16, 17, 100, 101, 113, 128]   # around the 16-row tiles and the 128 limit
+
+
+def _edge_inputs(device, B, Lq, Lk, Dh, dtype, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, do = (torch.randn(B, 2, Lq, Dh, generator=g, device=device).to(dtype) for _ in range(2))
+    k, v = (torch.randn(B, 2, Lk, Dh, generator=g, device=device).to(dtype) for _ in range(2))
+    m = torch.rand(B, Lk, generator=g, device=device) > 0.3
+    return q, k, v, do, m
+
+
+def _no_visible_key_mask(device, B, L):
+    """Per-batch mask whose first keys are masked: under causal, batch 0's
+    rows 0-4 see no valid key, batch 1's row 0 neither, and batch 2 has no
+    valid key at all; each such row is the uniform average over all L keys."""
+    m = torch.ones(B, L, dtype=torch.bool, device=device)
+    m[0, :5] = False
+    m[1, 0] = False
+    m[2 % B] = False
+    return m
+
+
+def _fwd_agrees(q, k, v, causal, m):
+    before = cuda_attention.launches
+    out = cuda_attention.fused_masked_attention(q, k, v, causal=causal, kv_mask=m)
+    torch.cuda.synchronize()
+    assert cuda_attention.launches == before + 1
+    ref = cuda_attention.attention_plain(q, k, v, causal=causal, kv_mask=m)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= TOL[q.dtype], err
+
+
+def _bwd_agrees(q, k, v, do, causal, m):
+    before = cuda_attention.bwd_launches
+    grads = cuda_attention.attention_bwd(q, k, v, do, causal=causal, kv_mask=m)
+    torch.cuda.synchronize()
+    assert cuda_attention.bwd_launches == before + 1
+    refs = cuda_attention.attention_bwd_plain(q, k, v, do, causal=causal, kv_mask=m)
+    for name, out, ref in zip("qkv", grads, refs):
+        assert out.dtype == q.dtype and out.shape == ref.shape, name
+        scale = max(1.0, ref.float().abs().max().item())
+        err = (out.float() - ref.float()).abs().max().item()
+        assert err <= BWD_TOL[q.dtype] * scale, f"d{name}: {err} > {BWD_TOL[q.dtype]} * {scale}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("Lk", EDGES)
+@pytest.mark.parametrize("Lq", EDGES)
+def test_kernels_at_tile_edges(cuda, dtype, Lq, Lk):
+    # B = 3: N = 6 rows, not a multiple of a cluster's or a block's rows
+    q, k, v, do, m = _edge_inputs(cuda, 3, Lq, Lk, 32, dtype, seed=Lq * 131 + Lk)
+    _fwd_agrees(q, k, v, False, m)
+    _bwd_agrees(q, k, v, do, False, m)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("Dh", [8, 32, 64, 128])
+@pytest.mark.parametrize("L", EDGES)
+def test_kernels_causal_at_tile_edges(cuda, dtype, L, Dh):
+    q, k, v, do, m = _edge_inputs(cuda, 3, L, L, Dh, dtype, seed=L * 7 + Dh)
+    _fwd_agrees(q, k, v, True, m)
+    _bwd_agrees(q, k, v, do, True, m)
+    _fwd_agrees(q, k, v, True, None)
+    _bwd_agrees(q, k, v, do, True, None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("L", [17, 101, 128])
+def test_kernels_rows_with_no_visible_valid_key(cuda, dtype, L):
+    q, k, v, do, _ = _edge_inputs(cuda, 5, L, L, 32, dtype, seed=L)
+    m = _no_visible_key_mask(cuda, 5, L)
+    _fwd_agrees(q, k, v, True, m)
+    _bwd_agrees(q, k, v, do, True, m)
+    _fwd_agrees(q[:, :, :1], k, v, False, m)     # the decode path, batch 2 fully masked
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("Lq,causal", [(101, False), (101, True), (1, False)])
+def test_kernels_take_head_split_views(cuda, dtype, Lq, causal):
+    """q, k, v, dout as the model hands them: (B, L, H * Dh) projections
+    viewed as (B, H, L, Dh), unit stride along Dh only; the results equal
+    those of contiguous copies, and the output keeps the view's layout."""
+    B, H, L, Dh = 8, 2, 101, 32
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(4, B, L, H * Dh, generator=g, device=cuda).to(dtype)
+
+    def heads(t, n):
+        return t[:, :n].reshape(B, n, H, Dh).transpose(1, 2)
+
+    q, do = heads(x[0], Lq), heads(x[3], Lq)
+    k, v = heads(x[1], L), heads(x[2], L)
+    assert not q.is_contiguous() and q.stride(-1) == 1
+    m = torch.arange(L, device=cuda) <= 50
+    out = cuda_attention.attention_fwd(q, k, v, causal=causal, kv_mask=m)
+    ref = cuda_attention.attention_fwd(*(t.contiguous() for t in (q, k, v)), causal=causal,
+                                       kv_mask=m)
+    torch.cuda.synchronize()
+    if Lq == L:   # a dense view: the output takes its layout, so merging heads copies nothing
+        assert out.stride() == q.stride()
+    assert torch.equal(out, ref)
+    grads = cuda_attention.attention_bwd(q, k, v, do, causal=causal, kv_mask=m)
+    refs = cuda_attention.attention_bwd(*(t.contiguous() for t in (q, k, v, do)), causal=causal,
+                                        kv_mask=m)
+    torch.cuda.synchronize()
+    for a, b in zip(grads, refs):
+        assert torch.equal(a, b)
+
+
+def test_backward_takes_an_expanded_gradient(cuda):
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v = (torch.randn(4, 2, 101, 32, generator=g, device=cuda, requires_grad=True)
+               for _ in range(3))
+    cuda_attention.fused_masked_attention(q, k, v, causal=True).sum().backward()
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    cuda_attention.attention_plain(*leaves, causal=True).sum().backward()
+    for x, y in zip((q, k, v), leaves):
+        assert (x.grad - y.grad).abs().max().item() <= 1e-5 * max(1.0, y.grad.abs().max().item())
 
 
 # ------------------------------------------------------------- whole decode

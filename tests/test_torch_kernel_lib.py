@@ -89,3 +89,15 @@ def test_missing_nvcc_is_an_error(monkeypatch, tmp_path):
         pytest.skip("this machine has the CUDA toolkit at its default path")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         kernel_lib.nvcc_path()
+
+
+def test_a_changed_header_rebuilds_its_sources(fake_toolchain):
+    src, build, log = fake_toolchain
+    (src / "a.cu").write_text('#include "common.cuh"\n')
+    (src / "common.cuh").write_text("// v1\n")
+    kernel_lib.build_all()
+    assert len(_calls(log)) == 1
+    assert kernel_lib.build_all() == {"a": None}   # cached while nothing changes
+    (src / "common.cuh").write_text("// v2\n")
+    assert kernel_lib.build_all()["a"] is not None
+    assert len(_calls(log)) == 2
