@@ -17,12 +17,19 @@ Phases, each printed on its own line and each fatal on failure:
    planted-fault reading far outside the tolerance, and the kernel, plain,
    library and bound times: attention_fwd (f32 and bf16, serving shapes),
    attention_bwd (the PPO update's shapes, against autograd through the plain
-   forward), ar_decode, the whole decode, at full DCML width (B = 1, 8,
-   128; deterministic and with noise; avail masked and None; beside it the
-   cached decode's time at the same B), and decode_step, one decode
-   position, for both continuous families (B = 1, 8, 128; A = 10, 101;
-   positions 0, mid, last; logits and every cache; beside it the cached
-   decode step's time at the same shape);
+   forward), ar_decode, the whole decode, at full DCML width (B = 1, 3, 8,
+   9, 17, 128; deterministic and with noise; avail masked and None), on
+   short decodes (A = 1, 2, 10), with weights in device memory (n_embd 256)
+   and off the recipe's widths (4 heads, n_embd 32: the generic kernel),
+   timed at B = 1, 8, 128 beside the earlier design's recorded time and the
+   cached decode's, and decode_step, one decode position, for both
+   continuous families (B = 1, 3, 8, 9, 17, 128; A = 10, 101; positions 0,
+   mid, last; logits and every cache), on position-major caches, short
+   decodes, n_embd 256 and the generic kernel's widths, timed beside the
+   earlier design's recorded time and the cached decode step's; each check
+   and timing prints the launch plan (path, rows a cluster, which kernel)
+   and each timing the cluster barriers a position (ar_decode) or a launch
+   (decode_step);
 3. serving: the DCML MAT policy at full width (101 agents, obs 7, state 102,
    n_embd 64, 2 blocks, 2 heads, seeded random weights) served through
    ContinuousBatcher -> DecodeEngine -> serve_decode on the card, first with
@@ -96,7 +103,20 @@ NEAR_TIE = 1e-5
 # whole decode, kernel vs plain: log-probs (and the tail's action) within
 # 1e-4, worker actions equal except past a near-tie (summation order)
 AR_LOGP_TOL = 1e-4
-AR_BATCHES = (1, 8, 128)
+AR_BATCHES = (1, 8, 128)               # timed
+CHECK_BATCHES = (1, 3, 8, 9, 17, 128)  # checked: odd B leaves a cluster's rows part-filled
+SHORT_AGENTS = (1, 2, 10)              # short decodes checked beside the 101 agents
+WIDE_EMBD = 256                        # no cluster holds these weights: the device-memory path
+# off the recipe's widths (n_embd 64, 2 heads): the generic on-chip kernel, at
+# 2 rows a cluster (B 3) and 8 (B 40)
+GENERIC_WIDTHS = ({"n_head": 4}, {"n_embd": 32})
+GENERIC_BATCHES = (3, 40)
+# recorded constants, printed beside this run's times and nowhere else: the
+# times of the kernels' first design (one block a row, weights read through
+# L2; device per call, graph replay, L2-warm, NVIDIA H100 80GB HBM3 at
+# 700 W): ar_decode in ms; decode_step at MuJoCo 10x2, last position, in us
+AR_EARLIER_MS = {1: 6.984, 8: 7.158, 128: 7.176}
+STEP_EARLIER_US = {1: 56.44, 8: 58.23, 128: 57.58}
 # decode step, kernel vs plain: logits (up to ~5 with O(1) weights) and
 # caches; f32 summation order moves them by a few 1e-6
 STEP_TOL = 2e-5
@@ -448,22 +468,31 @@ def _ar_bound(cfg, weights, B, has_avail):
     return _roof(nbytes, flops, F32_SIMT_FLOPS)
 
 
+def _plan_words(plan):
+    """A decode launch's plan in words: path, rows a cluster, kernel."""
+    path = "on chip" if plan.on_chip else "device memory"
+    kernel = "recipe's kernel" if plan.recipe else "generic kernel"
+    return f"{path}, {plan.rows} rows a cluster, {kernel}"
+
+
 def phase2_ar_decode(torch):
-    """ar_decode against its plain twin at full DCML width, a planted fault,
-    and the kernel's, the plain twin's and the cached decode's times."""
+    """ar_decode against its plain twin at full DCML width (B 1-128, noise on
+    and off, avail masked and None), on short decodes and on the
+    device-memory path (n_embd 256), a planted fault, and the kernel's, the
+    plain twin's and the cached decode's times beside the earlier kernel's."""
+    import dataclasses
+
     from mat_dcml_tpu_torch.models.decode import cached_decode
     from mat_dcml_tpu_torch.ops import ar_decode as ard
     from mat_dcml_tpu_torch.ops.distributions import gumbel_noise
 
     dev = torch.device("cuda")
-    cfg = _dcml_config()
-    A, D, adim, nd = cfg.n_agent, cfg.n_embd, cfg.action_dim, cfg.n_discrete_agents
-    model = _scaled_model(torch, cfg, SEED + 3)
+    base = _dcml_config()
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
-    kw = dict(n_head=cfg.n_head, adim=adim, nd=nd)
 
-    def inputs(B, noise, masked):
-        rep = torch.randn(B, A, D, generator=g, device=dev)
+    def inputs(cfg, B, noise, masked):
+        A, adim = cfg.n_agent, cfg.action_dim
+        rep = torch.randn(B, A, cfg.n_embd, generator=g, device=dev)
         zeros = torch.zeros(B, A, adim, device=dev)
         gumbel = gumbel_noise((B, A, adim), g, dev) if noise else zeros
         normal = torch.randn(B, 1, adim, generator=g, device=dev) * float(noise)
@@ -476,26 +505,48 @@ def phase2_ar_decode(torch):
     def to_np(*ts):
         return [t.cpu().numpy() for t in ts]
 
+    def plan_of(cfg, B):
+        return ard.kernel_plan(B, cfg.n_agent, n_embd=cfg.n_embd, n_head=cfg.n_head,
+                               n_block=cfg.n_block, adim=cfg.action_dim)
+
     worst, shapes = 0.0, {}
+    cases = [(base, B, noise, masked) for B in CHECK_BATCHES for noise in (False, True)
+             for masked in (True, False)]
+    cases += [(dataclasses.replace(base, n_agent=A), B, True, masked) for A in SHORT_AGENTS
+              for B in (3, 9) for masked in (True, False)]
+    cases += [(dataclasses.replace(base, n_embd=WIDE_EMBD), B, noise, True) for B in (1, 9, 17)
+              for noise in (False, True)]
+    cases += [(dataclasses.replace(base, **width), B, True, True) for width in GENERIC_WIDTHS
+              for B in GENERIC_BATCHES]
+    models = {}
     with torch.no_grad():
-        weights = ard.pack_ar_decode_weights(model)
-        for B in AR_BATCHES:
-            for noise in (False, True):
-                for masked in (True, False):
-                    x = inputs(B, noise, masked)
-                    act, logp = ard.fused_ar_decode(weights, *x, **kw)
-                    torch.cuda.synchronize()
-                    ref = ard.ar_decode_plain(weights, *x, return_scores=True, **kw)
-                    label = (f"B {B} {'noise' if noise else 'deterministic'} "
-                             f"avail {'masked' if masked else 'None'}")
-                    err, flips = _agree(*to_np(act, logp, *ref), nd, AR_LOGP_TOL,
-                                        f"ar_decode {label}")
-                    worst = max(worst, err)
-                    say(f"[phase 2] ar_decode {label}: max|logp kernel - plain| {err:.3g} "
-                        f"(tol {AR_LOGP_TOL}), rows diverging at a near-tie {flips}")
+        for cfg, B, noise, masked in cases:
+            key = (cfg.n_embd, cfg.n_head)
+            if key not in models:
+                models[key] = ard.pack_ar_decode_weights(_scaled_model(torch, cfg, SEED + 3))
+            weights = models[key]
+            kw = dict(n_head=cfg.n_head, adim=cfg.action_dim, nd=cfg.n_discrete_agents)
+            x = inputs(cfg, B, noise, masked)
+            act, logp = ard.fused_ar_decode(weights, *x, **kw)
+            torch.cuda.synchronize()
+            ref = ard.ar_decode_plain(weights, *x, return_scores=True, **kw)
+            plan = plan_of(cfg, B)
+            label = (f"A {cfg.n_agent} n_embd {cfg.n_embd} heads {cfg.n_head} B {B} "
+                     f"{'noise' if noise else 'deterministic'} "
+                     f"avail {'masked' if masked else 'None'} ({_plan_words(plan)})")
+            err, flips = _agree(*to_np(act, logp, *ref), cfg.n_discrete_agents, AR_LOGP_TOL,
+                                f"ar_decode {label}")
+            worst = max(worst, err)
+            say(f"[phase 2] ar_decode {label}: max|logp kernel - plain| {err:.3g} "
+                f"(tol {AR_LOGP_TOL}), rows diverging at a near-tie {flips}")
+        cfg = base
+        A, D, adim, nd = cfg.n_agent, cfg.n_embd, cfg.action_dim, cfg.n_discrete_agents
+        kw = dict(n_head=cfg.n_head, adim=adim, nd=nd)
+        model = _scaled_model(torch, cfg, SEED + 3)
+        weights = models[(D, cfg.n_head)]
         # what the check must catch: the plain twin fed agent 50's rep replaced
         # by agent 49's
-        x = inputs(8, True, True)
+        x = inputs(cfg, 8, True, True)
         ref_act, ref_logp = ard.ar_decode_plain(weights, *x, **kw)
         rep_f = x[0].clone()
         rep_f[:, 50] = x[0][:, 49]
@@ -508,7 +559,7 @@ def phase2_ar_decode(torch):
             raise AssertionError(f"ar_decode tolerance would pass a replaced rep row ({fault})")
 
         for B in AR_BATCHES:
-            rep, gumbel, normal, avail = inputs(B, True, True)
+            rep, gumbel, normal, avail = inputs(cfg, B, True, True)
             tail = torch.zeros(A, B, adim, device=dev)
             tail[nd:] = normal.transpose(0, 1)
             ms, eager_ms = _time_ms(
@@ -521,15 +572,19 @@ def phase2_ar_decode(torch):
                 torch, lambda: cached_decode(model, rep, avail, False, gumbel=gumbel,
                                              tail_noise=tail), iters=2)
             bound_ms, bound_by = _ar_bound(cfg, weights, B, True)
+            plan = plan_of(cfg, B)
             shapes[B] = {"shape": f"obs_rep ({B}, {A}, {D}) f32, noise, avail masked",
                          "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
                          "plain_eager_ms": plain_eager_ms, "cached_decode_ms": cached_ms,
                          "cached_decode_eager_ms": cached_eager_ms, "bound_ms": bound_ms,
                          "bound_by": bound_by}
             say(f"[phase 2] time ar_decode B {B}, device (eager) per call: kernel {ms:.3f} "
-                f"({eager_ms:.3f}) ms, plain {plain_ms:.2f} ({plain_eager_ms:.2f}) ms, cached "
-                f"decode {cached_ms:.2f} ({cached_eager_ms:.2f}) ms, bound {bound_ms * 1e3:.2f} us "
-                f"({bound_by}); L2-warm")
+                f"({eager_ms:.3f}) ms, earlier design {AR_EARLIER_MS[B]:.3f} ms (a recorded "
+                f"constant; {AR_EARLIER_MS[B] / ms:.2f}x), plain {plain_ms:.2f} ({plain_eager_ms:.2f}) ms, "
+                f"cached decode {cached_ms:.2f} ({cached_eager_ms:.2f}) ms, bound "
+                f"{bound_ms * 1e3:.2f} us ({bound_by}); {plan.clusters} clusters of "
+                f"{plan.cluster} CTAs, {_plan_words(plan)}, {plan.smem_bytes} B shared "
+                f"memory a CTA, {plan.barriers} cluster barriers a position; L2-warm")
     torch.cuda.synchronize()
     return worst, shapes
 
@@ -561,42 +616,63 @@ def _step_bound(cfg, weights, B, i):
 
 def phase2_decode_step(torch):
     """decode_step against its plain twin for both continuous families at the
-    MuJoCo width (A = 10) and at 101 agents, a planted fault, and the
-    kernel's, the plain twin's and the cached decode step's times; beside
-    them a whole continuous decode's time, scan (A launches) and cached."""
+    MuJoCo width (A = 10) and at 101 agents (B 1-128), on position-major
+    caches, on short decodes and on the device-memory path (n_embd 256), a
+    planted fault, and the kernel's, the plain twin's and the cached decode
+    step's times beside the earlier kernel's; beside them a whole continuous
+    decode's time, scan (A launches) and cached."""
+    import dataclasses
+
     from mat_dcml_tpu_torch.models.decode import ar_decode, cached_decode
     from mat_dcml_tpu_torch.ops import decode_step as dst
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 5)
     worst, shapes = 0.0, {}
+
+    def plan_of(cfg, B):
+        return dst.kernel_plan(B, cfg.n_agent, cfg.action_input_dim, n_embd=cfg.n_embd,
+                               n_head=cfg.n_head, n_block=cfg.n_block, adim=cfg.action_dim)
+
+    cases = [(_mj_config(family, A), B, i, False) for family in
+             ("continuous", "available_continuous") for A in STEP_AGENTS for B in CHECK_BATCHES
+             for i in (0, A // 2, A - 1)]
+    cases += [(dataclasses.replace(_mj_config("continuous", A), n_embd=embd), B, A - 1, pm)
+              for embd in (64, WIDE_EMBD) for pm in (False, True) for A in SHORT_AGENTS
+              for B in (3, 9)]
+    cases += [(dataclasses.replace(_mj_config(), **width), B, 9, False)
+              for width in GENERIC_WIDTHS for B in GENERIC_BATCHES]
+    models = {}
     with torch.no_grad():
-        for family in ("continuous", "available_continuous"):
-            for A in STEP_AGENTS:
-                cfg = _mj_config(family, A)
-                D, nb, adim = cfg.n_embd, cfg.n_block, cfg.action_dim
-                model = _scaled_model(torch, cfg, SEED + 6)
-                weights = dst.pack_decode_weights(model)
-                for B in AR_BATCHES:
-                    caches = dst.decode_caches(nb, A, B, D, dev)
-                    caches.copy_(torch.randn(caches.shape, generator=g, device=dev))
-                    x_in = torch.randn(B, cfg.action_input_dim, generator=g, device=dev)
-                    rep = torch.randn(B, A, D, generator=g, device=dev)
-                    for i in (0, A // 2, A - 1):
-                        mine, ref = caches.clone(), caches.clone()
-                        out = dst.fused_decode_step(weights, x_in, rep[:, i], mine, i,
-                                                    n_head=cfg.n_head, adim=adim)
-                        torch.cuda.synchronize()
-                        want = dst.decode_step_plain(weights, x_in, rep[:, i], ref, i,
-                                                     n_head=cfg.n_head, adim=adim)
-                        err = max((out - want).abs().max().item(),
-                                  (mine - ref).abs().max().item())
-                        worst = max(worst, err)
-                        say(f"[phase 2] decode_step {family} A {A} B {B} i {i}: max|kernel - "
-                            f"plain| over logits and {4 * nb} caches {err:.3g} (tol {STEP_TOL})")
-                        if not err <= STEP_TOL:
-                            raise AssertionError(f"decode_step {family} A {A} B {B} i {i}: "
-                                                 f"error {err} > {STEP_TOL}")
+        for cfg, B, i, position_major in cases:
+            A, D, nb, adim = cfg.n_agent, cfg.n_embd, cfg.n_block, cfg.action_dim
+            key = (cfg.action_type, A, D, cfg.n_head)
+            if key not in models:
+                models[key] = dst.pack_decode_weights(_scaled_model(torch, cfg, SEED + 6))
+            weights = models[key]
+            if position_major:
+                caches = torch.empty(4 * nb, A, B, D, device=dev)
+            else:
+                caches = dst.decode_caches(nb, A, B, D, dev)
+            caches.copy_(torch.randn(caches.shape, generator=g, device=dev))
+            x_in = torch.randn(B, cfg.action_input_dim, generator=g, device=dev)
+            rep = torch.randn(B, A, D, generator=g, device=dev)
+            mine, ref = caches.clone(), caches.clone()
+            out = dst.fused_decode_step(weights, x_in, rep[:, i], mine, i, n_head=cfg.n_head,
+                                        adim=adim)
+            torch.cuda.synchronize()
+            want = dst.decode_step_plain(weights, x_in, rep[:, i], ref, i, n_head=cfg.n_head,
+                                         adim=adim)
+            err = max((out - want).abs().max().item(), (mine - ref).abs().max().item())
+            worst = max(worst, err)
+            plan = plan_of(cfg, B)
+            label = (f"{cfg.action_type} A {A} n_embd {D} heads {cfg.n_head} B {B} i {i} "
+                     f"{'position' if position_major else 'batch'}-major caches "
+                     f"({_plan_words(plan)})")
+            say(f"[phase 2] decode_step {label}: max|kernel - plain| over logits and {4 * nb} "
+                f"caches {err:.3g} (tol {STEP_TOL})")
+            if not err <= STEP_TOL:
+                raise AssertionError(f"decode_step {label}: error {err} > {STEP_TOL}")
         # what the check must catch: the plain twin with the self-attention
         # key of agent mid replaced by the one before it (A = 10, B = 8, last)
         cfg = _mj_config()
@@ -635,6 +711,7 @@ def phase2_decode_step(torch):
             ms_cached, cached_eager_ms = _time_ms(torch, lambda: model.decode_step_cached(
                 x_in[:, None], rep[:, i:i + 1], q2[:, :, :, i:i + 1], kv, i, valid), iters=20)
             bound_ms, bound_by = _step_bound(cfg, weights, B, i)
+            plan = plan_of(cfg, B)
             # a whole stochastic decode of the A positions: A launches and the
             # sampling between them (scan), against the cached decode
             tail = torch.randn(A, B, adim, generator=g, device=dev)
@@ -651,10 +728,14 @@ def phase2_decode_step(torch):
                          "scan_decode_eager_ms": dec_eager_ms, "cached_decode_ms": cdec_ms,
                          "cached_decode_eager_ms": cdec_eager_ms}
             say(f"[phase 2] time decode_step B {B} A {A} i {i}, device (eager) per call: kernel "
-                f"{ms * 1e3:.2f} ({eager_ms * 1e3:.2f}) us, plain {plain_ms * 1e3:.2f} "
+                f"{ms * 1e3:.2f} ({eager_ms * 1e3:.2f}) us, earlier design "
+                f"{STEP_EARLIER_US[B]:.2f} us (a recorded constant; "
+                f"{STEP_EARLIER_US[B] / (ms * 1e3):.2f}x), plain {plain_ms * 1e3:.2f} "
                 f"({plain_eager_ms * 1e3:.2f}) us, cached decode step {ms_cached * 1e3:.2f} "
                 f"({cached_eager_ms * 1e3:.2f}) us, bound {bound_ms * 1e3:.3f} us ({bound_by}); "
-                f"L2-warm")
+                f"{plan.clusters} clusters of {plan.cluster} CTAs, {_plan_words(plan)}, "
+                f"{plan.smem_bytes} B shared memory a CTA, {plan.barriers} cluster barriers a "
+                f"launch; L2-warm")
             say(f"[phase 2] time whole continuous decode B {B} A {A}, device (eager) per call: "
                 f"scan {dec_ms:.3f} ({dec_eager_ms:.3f}) ms, cached {cdec_ms:.3f} "
                 f"({cdec_eager_ms:.3f}) ms")

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from mat_dcml_tpu_torch.models.modules import LN_EPS
 from mat_dcml_tpu_torch.ops.cuda_attention import attention_plain
+from mat_dcml_tpu_torch.ops.decode_plan import Plan, bind, launch_plan, with_image
 from mat_dcml_tpu_torch.ops.distributions import LOG_2PI, MASK_VALUE
 
 launches = 0
@@ -237,10 +238,18 @@ def _library() -> ctypes.CDLL:
     lib.mat_ar_decode.restype = i32   # cudaError_t
     lib.mat_ar_decode_weight_count.argtypes = [i32] * 3
     lib.mat_ar_decode_weight_count.restype = ctypes.c_longlong
+    bind(lib)
     for name in ("max_d", "max_a", "max_heads", "max_adim"):
         getattr(lib, f"mat_ar_decode_{name}").restype = i32
     lib._mat_typed = True
     return lib
+
+
+def kernel_plan(B: int, A: int, *, n_embd: int, n_head: int, n_block: int, adim: int) -> Plan:
+    """The launch plan the compiled kernel takes for a decode of B rows
+    over A agents at these widths; building it if need be."""
+    return launch_plan(_library(), "ar_decode", B, n_embd=n_embd, n_head=n_head,
+                       n_block=n_block, adim=adim, n_pos=A)
 
 
 def kernel_limits() -> dict:
@@ -304,10 +313,12 @@ def fused_ar_decode(
     """The whole decode: ``(action (B, A), log_prob (B, A))``, f32.
 
     Inputs as :func:`ar_decode_plain`.  On the CPU it is the plain twin; on a
-    CUDA device it launches ``csrc/ar_decode.cu`` (one block per batch row,
-    looping over the positions) or raises.  The K/V caches live in a
-    device-memory workspace of ``B * n_block * 4 * A * D`` f32 that this call
-    allocates.
+    CUDA device it launches ``csrc/ar_decode.cu`` (a cluster of 4 CTAs per
+    ``plan.rows`` batch rows, looping over the positions; the plan is
+    :func:`kernel_plan`) or raises.  This call allocates the kernel's
+    workspace: the cross-attention queries (``B * n_block * A * D`` f32) and
+    the K/V caches (four times as many).  It is left unzeroed: the kernel
+    writes every slot before it reads it.
     """
     global launches
     n_rows = _check_inputs(weights, obs_rep, gumbel, normal_rows, avail, n_head, adim, nd)
@@ -331,13 +342,18 @@ def fused_ar_decode(
     if flat.numel() != lib.mat_ar_decode_weight_count(D, n_block, adim):
         raise ValueError(f"packed weights hold {flat.numel()} values, the kernel's layout "
                          f"{lib.mat_ar_decode_weight_count(D, n_block, adim)}")
+    plan = kernel_plan(B, A, n_embd=D, n_head=n_head, n_block=n_block, adim=adim)
     act = torch.empty(B, A, device=obs_rep.device)
     logp = torch.empty(B, A, device=obs_rep.device)
-    cache = torch.zeros(B, n_block, 4, A, D, device=obs_rep.device)
+    # the (B, n_block, A, D) cross queries, then the (B, n_block, 4, A, D)
+    # caches; never read before the kernel writes it (csrc/ar_decode.cu)
+    workspace = torch.empty(5 * B * n_block * A * D, device=obs_rep.device)
+    if plan.on_chip:
+        flat = with_image(flat, lib, "ar_decode", plan, n_embd=D, n_block=n_block, adim=adim)
     with torch.cuda.device(obs_rep.device):
         rc = lib.mat_ar_decode(
             obs_rep.data_ptr(), gumbel.data_ptr(), normal_rows.data_ptr(),
-            None if avail is None else avail.data_ptr(), flat.data_ptr(), cache.data_ptr(),
+            None if avail is None else avail.data_ptr(), flat.data_ptr(), workspace.data_ptr(),
             act.data_ptr(), logp.data_ptr(), B, A, D, n_head, n_block, adim, nd, n_rows,
             torch.cuda.current_stream(obs_rep.device).cuda_stream,
         )

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from mat_dcml_tpu_torch.ops.ar_decode import _block, _ln
+from mat_dcml_tpu_torch.ops.decode_plan import Plan, bind, launch_plan, with_image
 
 launches = 0
 _limits: dict = {}
@@ -158,10 +159,19 @@ def _library() -> ctypes.CDLL:
     lib.mat_decode_step.restype = i32   # cudaError_t
     lib.mat_decode_step_weight_count.argtypes = [i32] * 4
     lib.mat_decode_step_weight_count.restype = i64
+    bind(lib)
     for name in ("d", "l", "heads", "in", "adim"):
         getattr(lib, f"mat_decode_step_max_{name}").restype = i32
     lib._mat_typed = True
     return lib
+
+
+def kernel_plan(B: int, L: int, in_dim: int, *, n_embd: int, n_head: int, n_block: int,
+                adim: int) -> Plan:
+    """The launch plan the compiled kernel takes for B rows with caches of
+    L positions at these widths; building it if need be."""
+    return launch_plan(_library(), "decode_step", B, n_embd=n_embd, n_head=n_head,
+                       n_block=n_block, adim=adim, n_pos=L, in_dim=in_dim)
 
 
 def kernel_limits() -> dict:
@@ -215,7 +225,7 @@ def _flat_weights(weights: DecodeStepWeights, count: int) -> torch.Tensor:
         at += t.numel()
     if at != count:
         raise ValueError(f"packed weights hold {at} values, the kernel's layout {count}")
-    return base.reshape(-1)   # the pointer is what the kernel reads
+    return base.as_strided((at,), (1,))   # all the fields: the buffer they are views into
 
 
 def fused_decode_step(weights: DecodeStepWeights, x_in: torch.Tensor, rep_i: torch.Tensor,
@@ -226,7 +236,8 @@ def fused_decode_step(weights: DecodeStepWeights, x_in: torch.Tensor, rep_i: tor
     Inputs as :func:`decode_step_plain`; ``x_in``, ``rep_i`` and each cache's
     rows may be strided views whose last dim is contiguous.  On the CPU it
     is the plain twin; on a CUDA device it launches ``csrc/decode_step.cu``
-    (one block per batch row) or raises."""
+    (a cluster of 4 CTAs per ``plan.rows`` batch rows, :func:`kernel_plan`)
+    or raises."""
     global launches
     _check_inputs(weights, x_in, rep_i, caches, i, n_head, adim)
     if rep_i.device.type == "cpu":
@@ -246,6 +257,10 @@ def fused_decode_step(weights: DecodeStepWeights, x_in: torch.Tensor, rep_i: tor
         raise ValueError("x_in, rep_i and caches need a contiguous last dim")
     lib = _library()
     flat = _flat_weights(weights, lib.mat_decode_step_weight_count(in_dim, D, n_block, adim))
+    plan = kernel_plan(B, L, in_dim, n_embd=D, n_head=n_head, n_block=n_block, adim=adim)
+    if plan.on_chip:
+        flat = with_image(flat, lib, "decode_step", plan, n_embd=D, n_block=n_block, adim=adim,
+                          in_dim=in_dim)
     logits = torch.empty(B, adim, device=rep_i.device)
     with torch.cuda.device(rep_i.device):
         rc = lib.mat_decode_step(

@@ -20,6 +20,7 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -57,7 +58,10 @@ def sources() -> list:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    text = (SRC_DIR / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(text)
+    for other in re.findall(rb'#include "(\w+\.cu)"', text):   # a source built on another
+        digest.update((SRC_DIR / other.decode()).read_bytes())
     for header in sorted(SRC_DIR.glob("*.cuh")):   # shared headers rebuild their includers
         digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())

@@ -14,17 +14,21 @@ output).  Backward (against autograd through the plain version): f32 atol
 plain rounds them, and a sum of 101 terms in a different order can move a
 bf16 result by an ulp, at most 2**-7 of its size).
 
-Whole decode (``ar_decode``) against its plain twin at the DCML width, f32:
+Whole decode (``ar_decode``) against its plain twin at the DCML width (and
+at n_embd 256, whose weights the kernel reads from device memory), f32:
 log-probs and the tail's actions atol 1e-4, worker actions equal except past
 a position whose top-2 plain score margin is below 1e-5 (a near-tie that
 summation order may break).
 
 Decode step (``decode_step``) against its plain twin for both continuous
 families at the multi-agent MuJoCo width (manyagent_ant 10x2: A = 10, action
-8) and at 101 agents, f32, O(1) weights: logits and every cache atol 2e-5
-(summation order only).  The cache-layout probe's kernels against their
+8) and at 101 agents (and at n_embd 256, on batch- and position-major
+caches), f32, O(1) weights: logits and every cache atol 2e-5 (summation
+order only).  The cache-layout probe's kernels against their
 plain versions, atol 1e-5.
 """
+
+import dataclasses
 
 import pytest
 import torch
@@ -314,10 +318,10 @@ def _dcml_model(device, seed=0, cfg=DCML):
     return model.to(device)
 
 
-def _decode_inputs(device, B, noise, masked, seed):
-    A, adim = DCML.n_agent, DCML.action_dim
+def _decode_inputs(device, B, noise, masked, seed, cfg=DCML):
+    A, adim = cfg.n_agent, cfg.action_dim
     g = torch.Generator(device=device).manual_seed(seed)
-    rep = torch.randn(B, A, DCML.n_embd, generator=g, device=device)
+    rep = torch.randn(B, A, cfg.n_embd, generator=g, device=device)
     gumbel = gumbel_noise((B, A, adim), g, device) if noise else torch.zeros(B, A, adim,
                                                                             device=device)
     normal = torch.randn(B, 1, adim, generator=g, device=device) * float(noise)
@@ -346,22 +350,64 @@ def _check_decodes_agree(act, logp, ref_act, ref_logp, scores, nd):
             assert (logp[b, :end] - ref_logp[b, :end]).abs().max() <= DECODE_TOL, f"row {b}"
 
 
-@pytest.mark.parametrize("masked", [True, False], ids=["avail", "avail_none"])
-@pytest.mark.parametrize("noise", [False, True], ids=["deterministic", "noise"])
-@pytest.mark.parametrize("B", [1, 3, 8, 128])
-def test_ar_decode_kernel_matches_plain(cuda, B, noise, masked):
-    weights = ard.pack_ar_decode_weights(_dcml_model(cuda))
-    rep, gumbel, normal, avail = _decode_inputs(cuda, B, noise, masked, seed=B)
-    kw = dict(n_head=DCML.n_head, adim=DCML.action_dim, nd=DCML.n_discrete_agents)
+def _ar_decode_against_plain(device, cfg, B, noise, masked, seed, on_chip, recipe=None):
+    """One kernel decode against the plain twin: one launch, the plan's path
+    (weights in shared memory, or in device memory) and, where given, its
+    kernel (the recipe's or the generic one), agreement."""
+    weights = ard.pack_ar_decode_weights(_dcml_model(device, cfg=cfg))
+    rep, gumbel, normal, avail = _decode_inputs(device, B, noise, masked, seed=seed, cfg=cfg)
+    kw = dict(n_head=cfg.n_head, adim=cfg.action_dim, nd=cfg.n_discrete_agents)
+    plan = ard.kernel_plan(B, cfg.n_agent, n_embd=cfg.n_embd, n_head=cfg.n_head,
+                           n_block=cfg.n_block, adim=cfg.action_dim)
+    assert plan.on_chip == on_chip
+    assert recipe is None or plan.recipe == recipe
     before = ard.launches
     act, logp = ard.fused_ar_decode(weights, rep, gumbel, normal, avail, **kw)
     torch.cuda.synchronize()
     assert ard.launches == before + 1
-    assert act.shape == logp.shape == (B, DCML.n_agent)
+    assert act.shape == logp.shape == (B, cfg.n_agent)
     assert torch.isfinite(act).all() and torch.isfinite(logp).all()
     ref = ard.ar_decode_plain(weights, rep, gumbel, normal, avail, return_scores=True, **kw)
     assert ard.launches == before + 1
-    _check_decodes_agree(act, logp, *ref, DCML.n_discrete_agents)
+    _check_decodes_agree(act, logp, *ref, cfg.n_discrete_agents)
+
+
+@pytest.mark.parametrize("masked", [True, False], ids=["avail", "avail_none"])
+@pytest.mark.parametrize("noise", [False, True], ids=["deterministic", "noise"])
+@pytest.mark.parametrize("B", [1, 3, 8, 9, 17, 128])
+def test_ar_decode_kernel_matches_plain(cuda, B, noise, masked):
+    # DCML width: weights in shared memory, the kernel compiled for the
+    # recipe's widths, 2 rows a cluster up to B = 32 (odd B leaves the last
+    # cluster half full), 8 at B = 128
+    _ar_decode_against_plain(cuda, DCML, B, noise, masked, seed=B, on_chip=True, recipe=True)
+
+
+@pytest.mark.parametrize("B", [3, 40])
+@pytest.mark.parametrize("width", [dict(n_head=4), dict(n_embd=32)], ids=["4_heads", "n_embd_32"])
+def test_ar_decode_generic_kernel_on_chip(cuda, width, B):
+    # off the recipe's widths the weights still fit on chip, and the generic
+    # kernel (widths and local matrices read at run time) runs, at 2 rows a
+    # cluster (B 3) and at 8 (B 40)
+    cfg = dataclasses.replace(DCML, **width)
+    _ar_decode_against_plain(cuda, cfg, B, True, True, seed=B + 11, on_chip=True, recipe=False)
+
+
+@pytest.mark.parametrize("masked", [True, False], ids=["avail", "avail_none"])
+@pytest.mark.parametrize("B", [3, 9])
+@pytest.mark.parametrize("A", [1, 2, 10])
+def test_ar_decode_kernel_short_decodes(cuda, A, B, masked):
+    # A - 1 workers and the Gaussian tail agent (A = 1: the tail alone)
+    cfg = dataclasses.replace(DCML, n_agent=A)
+    _ar_decode_against_plain(cuda, cfg, B, True, masked, seed=A * 31 + B, on_chip=True)
+
+
+@pytest.mark.parametrize("noise", [False, True], ids=["deterministic", "noise"])
+@pytest.mark.parametrize("B", [1, 9, 17])
+def test_ar_decode_kernel_weights_in_device_memory(cuda, B, noise):
+    # n_embd 256: no cluster holds the weight slices, so the same body reads
+    # them (and keeps the caches) in device memory, 8 rows a cluster
+    cfg = dataclasses.replace(DCML, n_embd=256)
+    _ar_decode_against_plain(cuda, cfg, B, noise, True, seed=B + 7, on_chip=False)
 
 
 def test_ar_decode_rejects_what_it_cannot_run(cuda):
@@ -417,20 +463,26 @@ def _mujoco_cfg(family, n_agent):
                      n_embd=64, n_head=2, action_type=family)
 
 
-@pytest.mark.parametrize("i_at", ["first", "mid", "last"])
-@pytest.mark.parametrize("B", [1, 8, 128])
-@pytest.mark.parametrize("A", [10, 101])
-@pytest.mark.parametrize("family", ["continuous", "available_continuous"])
-def test_decode_step_kernel_matches_plain(cuda, family, A, B, i_at):
-    cfg = _mujoco_cfg(family, A)
-    weights = dst.pack_decode_weights(_dcml_model(cuda, seed=A, cfg=cfg))
-    g = torch.Generator(device=cuda).manual_seed(B)
-    caches = dst.decode_caches(cfg.n_block, A, B, cfg.n_embd, cuda)
-    caches.copy_(torch.randn(caches.shape, generator=g, device=cuda))
-    x_in = torch.randn(B, cfg.action_input_dim, generator=g, device=cuda)
-    rep = torch.randn(B, A, cfg.n_embd, generator=g, device=cuda)
-    i = {"first": 0, "mid": A // 2, "last": A - 1}[i_at]
+def _decode_step_against_plain(device, cfg, B, i, position_major, on_chip, seed, recipe=None):
+    """One kernel position against the plain twin on batch-major caches
+    (``decode_caches``) or position-major ones: logits and every cache; the
+    plan's path and, where given, its kernel (the recipe's or the generic)."""
+    A = cfg.n_agent
+    weights = dst.pack_decode_weights(_dcml_model(device, seed=seed, cfg=cfg))
+    plan = dst.kernel_plan(B, A, cfg.action_input_dim, n_embd=cfg.n_embd, n_head=cfg.n_head,
+                           n_block=cfg.n_block, adim=cfg.action_dim)
+    assert plan.on_chip == on_chip
+    assert recipe is None or plan.recipe == recipe
+    g = torch.Generator(device=device).manual_seed(B)
+    if position_major:
+        caches = torch.empty(4 * cfg.n_block, A, B, cfg.n_embd, device=device)
+    else:
+        caches = dst.decode_caches(cfg.n_block, A, B, cfg.n_embd, device)
+    caches.copy_(torch.randn(caches.shape, generator=g, device=device))
+    x_in = torch.randn(B, cfg.action_input_dim, generator=g, device=device)
+    rep = torch.randn(B, A, cfg.n_embd, generator=g, device=device)
     mine, ref = caches.clone(), caches.clone()
+    assert mine.stride() == caches.stride()
     before = dst.launches
     out = dst.fused_decode_step(weights, x_in, rep[:, i], mine, i, n_head=cfg.n_head,
                                 adim=cfg.action_dim)
@@ -442,8 +494,42 @@ def test_decode_step_kernel_matches_plain(cuda, family, A, B, i_at):
     assert out.shape == (B, cfg.action_dim)
     assert (out - want).abs().max() <= STEP_TOL
     assert (mine - ref).abs().max() <= STEP_TOL
-    # only position i was written
-    assert torch.equal(mine[:, :i], caches[:, :i]) and torch.equal(mine[:, i + 1:], caches[:, i + 1:])
+    assert torch.equal(mine[:, :i], caches[:, :i])
+    assert torch.equal(mine[:, i + 1:], caches[:, i + 1:])
+
+
+@pytest.mark.parametrize("B", [3, 9])
+@pytest.mark.parametrize("A", [1, 2, 10])
+@pytest.mark.parametrize("layout", ["batch_major", "position_major"])
+@pytest.mark.parametrize("n_embd", [64, 256], ids=["on_chip", "device_memory"])
+def test_decode_step_kernel_layouts_and_paths(cuda, n_embd, layout, A, B):
+    # n_embd 256: the weight slices do not fit, the same body reads them
+    # from device memory
+    cfg = dataclasses.replace(_mujoco_cfg("continuous", A), n_embd=n_embd)
+    _decode_step_against_plain(cuda, cfg, B, A - 1, layout == "position_major", n_embd == 64,
+                               seed=A)
+
+
+@pytest.mark.parametrize("i_at", ["first", "mid", "last"])
+@pytest.mark.parametrize("B", [1, 3, 8, 9, 17, 128])
+@pytest.mark.parametrize("A", [10, 101])
+@pytest.mark.parametrize("family", ["continuous", "available_continuous"])
+def test_decode_step_kernel_matches_plain(cuda, family, A, B, i_at):
+    i = {"first": 0, "mid": A // 2, "last": A - 1}[i_at]
+    # the recipe's kernel, except at 8 rows a cluster over 101 positions,
+    # whose scores take the room of the second MLP layer: another set of
+    # local matrices, so the generic kernel
+    _decode_step_against_plain(cuda, _mujoco_cfg(family, A), B, i, False, True, seed=A,
+                               recipe=not (B == 128 and A == 101))
+
+
+@pytest.mark.parametrize("B", [3, 40])
+@pytest.mark.parametrize("width", [dict(n_head=4), dict(n_embd=32)], ids=["4_heads", "n_embd_32"])
+def test_decode_step_generic_kernel_on_chip(cuda, width, B):
+    # off the recipe's widths: the generic on-chip kernel, at 2 rows a
+    # cluster (B 3) and at 8 (B 40)
+    cfg = dataclasses.replace(_mujoco_cfg("continuous", 10), **width)
+    _decode_step_against_plain(cuda, cfg, B, 9, False, True, seed=B, recipe=False)
 
 
 def test_decode_step_rejects_what_it_cannot_run(cuda):
@@ -494,3 +580,18 @@ def test_cache_layout_probe_kernels_match_plain(cuda):
         ("attend", "batch_major"), ("softmax", "shared_memory"), ("softmax", "warp_shuffle")}
     assert all(r["max_abs_err"] <= cache_layout.TOL and r["ms"] > 0 for r in rows)
     assert set(verdicts) == {"store B=8", "attend B=8", "softmax B=8"}
+
+
+def test_decode_stage_probe_matches_the_kernel(cuda):
+    # the probe build of ar_decode.cu (stage clocks on) decodes as the kernel
+    # does, and splits a position into steps whose cycles add up
+    from mat_dcml_tpu_torch.probes import decode_stages
+
+    lib = decode_stages._library()
+    bar = decode_stages.barriers(lib)
+    assert bar["empty"]["cycles"] > 0 and bar["with_stores"]["cycles"] > 0
+    st = decode_stages.stages(lib, 8)
+    assert st["max_abs_err"] <= decode_stages.TOL
+    assert st["cluster_barriers_per_position"] == ard.kernel_plan(
+        8, DCML.n_agent, n_embd=64, n_head=2, n_block=2, adim=DCML.action_dim).barriers
+    assert st["cycles_per_position"] == pytest.approx(sum(st["split_cycles"].values()))

@@ -101,3 +101,16 @@ def test_a_changed_header_rebuilds_its_sources(fake_toolchain):
     (src / "common.cuh").write_text("// v2\n")
     assert kernel_lib.build_all()["a"] is not None
     assert len(_calls(log)) == 2
+
+
+def test_a_source_built_on_another_rebuilds_with_it(fake_toolchain):
+    # a source that includes another .cu (a probe build of a kernel) hashes
+    # it too, so an edit of the kernel rebuilds both
+    src, build, log = fake_toolchain
+    (src / "a.cu").write_text("// a v1\n")
+    (src / "probe.cu").write_text('#define PROBE 1\n#include "a.cu"\n')
+    kernel_lib.build_all()
+    assert len(_calls(log)) == 2
+    (src / "a.cu").write_text("// a v2\n")
+    assert all(log is not None for log in kernel_lib.build_all().values())
+    assert len(_calls(log)) == 4
