@@ -36,31 +36,37 @@ Phases, each printed on its own line and each fatal on failure:
    decode_mode="cached" (every attention through the kernel: 406 launches per
    dispatch), then with decode_mode="scan" (2 attention launches and 1
    ar_decode launch per dispatch); a bucket-8 decode must match the port on
-   the CPU, and the scan decode the card's cached decode;
+   the CPU, and the scan decode the card's cached decode; then both modes
+   again with serve_dtype="bf16", which must match the port's bf16 engine on
+   the CPU and stay within the JAX canary contract of the f32 engine;
 4. close: each batcher's thread joined, no thread left behind;
 5. training: DCMLRunner at the recipe's full width (101 agents, n_embd 64,
-   2 blocks, 2 heads, E = 8, T = 50, 15 PPO epochs x 4 minibatches) runs two
-   iterations (collect, GAE, PPO update) on the card with the cached decode;
+   2 blocks, 2 heads, E = 8, T = 50, 15 PPO epochs x 4 minibatches) runs one
+   iteration (collect, GAE, PPO update) on the card with the cached decode;
    every attention forward and backward must go through the kernels (counted
    exactly), the metrics must be finite, and one more update on the card must
    match the same update by the port on the CPU (same trajectory, weights,
    Adam state and permutations); then one iteration with
    decode_mode="scan", whose 50 rollout decodes are 50 ar_decode launches;
+   then a bf16 trunk (model_dtype="bfloat16"): one cached and one scan
+   iteration, and one more bf16 update matched against the CPU port;
 6. continuous serving: MAT on multi-agent MuJoCo lite at full width
    (manyagent_ant 10x2: 10 agents, action 8, obs 36, state 240, n_embd 64,
    2 blocks, 2 heads; seeded random weights at O(1) scale) served through
    the batcher and engine, cached then scan (10 decode_step launches per
    dispatch); bucket 8 must match the port on the CPU, and scan the cached;
+   then both modes with serve_dtype="bf16", matched against the CPU port;
 7. continuous training: two MujocoRunner iterations at that configuration
    (E = 8, T = 50, the recipe's PPO), cached then scan (500 decode_step
    launches), launches counted exactly, and one update on the card matched
-   against the CPU port;
+   against the CPU port; then one bf16 scan iteration;
 8. the cache-layout probe (probes/cache_layout.py): K/V store and attention
    in position-major against batch-major caches, and two row softmaxes,
    each checked against plain PyTorch and timed.
 
-The last two lines of standard output are a JSON object describing each
-kernel and the result line ``{"ok": true, "device": {...}}``.  Without a
+The bf16 legs' readings are a JSON line ``{"bf16_legs": {...}}``; the last
+two lines of standard output are a JSON object describing each kernel and
+the result line ``{"ok": true, "device": {...}}``.  Without a
 CUDA device it exits 2 and prints no result.
 """
 
@@ -105,6 +111,7 @@ NEAR_TIE = 1e-5
 AR_LOGP_TOL = 1e-4
 AR_BATCHES = (1, 8, 128)               # timed
 CHECK_BATCHES = (1, 3, 8, 9, 17, 128)  # checked: odd B leaves a cluster's rows part-filled
+BF16_CHECK_BATCHES = (1, 8, 9, 128)    # the bf16 legs' (the main path's buckets, a part-filled one)
 SHORT_AGENTS = (1, 2, 10)              # short decodes checked beside the 101 agents
 WIDE_EMBD = 256                        # no cluster holds these weights: the device-memory path
 # off the recipe's widths (n_embd 64, 2 heads): the generic on-chip kernel, at
@@ -124,8 +131,37 @@ STEP_AGENTS = (10, 101)
 # continuous served and trained: manyagent_ant 10x2 of multi-agent MuJoCo lite
 MJ_SCENARIO, MJ_CONF = "manyagent_ant", "10x2"
 CONT_ATOL_VS_CPU = 1e-4
-# training phase: the recipe (RunConfig / PPOConfig defaults)
-TRAIN_ITERS = 2
+# the bf16 legs (a bf16 trunk).  Kernel vs plain: both round to bf16 at the
+# same points and sum in f32 in different orders, so a value near a bf16
+# boundary may round the other way on one side and move what follows by a
+# bf16 ulp (measured on an H100, B 1-128: log-probs and the tail's action <=
+# 0.03, near-tie margins <= 0.013, logits <= 0.02, caches <= 0.031); a
+# planted fault must read at least BF16_FAULT_FACTOR times the tolerance
+BF16_AR_TOL = 0.05
+BF16_FAULT_FACTOR = 5
+BF16_NEAR_TIE = 5e-2
+BF16_STEP_TOL = 5e-2
+BF16_CACHE_TOL = 2.0**-4
+# a decode step's row whose logits moved by more than BF16_MOVED counts as
+# moved: a flip moves the row it happens in, so a sound kernel moves at most
+# one row or BF16_MOVED_SHARE of them (measured: none at B <= 9 but one at
+# n_embd 256, 2-3 of 128), a replaced key every row
+BF16_MOVED = 1e-3
+BF16_MOVED_SHARE = 0.1
+# the card's bf16 engine vs the port's bf16 engine on the CPU (cuBLAS and
+# the kernels against the CPU's sums: the flips above) and, within the JAX
+# canary contract for a bf16 trunk (serving/rollout_ctl.py), vs its f32 one
+BF16_LOGP_VS_CPU = 0.1
+CANARY_RTOL, CANARY_ATOL, CANARY_GREEDY = 2e-2, 1e-3, 0.75
+# one bf16 update card vs CPU: the JAX package's bound between two bf16
+# attention paths (tests/test_update_attn_parity.py); the key projections'
+# biases, whose exact gradient is 0, to 2 lr a step (Adam scales their
+# rounding noise up to steps of lr)
+BF16_UPDATE_RTOL, BF16_UPDATE_ATOL, BF16_VALUE_LOSS_RTOL = 5e-3, 5e-4, 1e-2
+
+# training phase: the recipe (RunConfig / PPOConfig defaults); one cached
+# f32 iteration (two before the bf16 phases joined, to keep the run's time)
+TRAIN_ITERS = 1
 # card vs CPU after one full update: Adam moves an entry by at most lr per
 # step, and a gradient near 0 can move it by a different amount on each
 # side, so the bound is a hundredth of the most an entry can move; metrics
@@ -405,11 +441,11 @@ def phase2_backward(torch):
     return errs, shapes
 
 
-def _agree(act, logp, ref_act, ref_logp, scores, nd, tol, what):
+def _agree(act, logp, ref_act, ref_logp, scores, nd, tol, what, near_tie=NEAR_TIE):
     """One decode against a reference, numpy ``(B, A)`` each and ``scores (B,
     A, adim)`` the reference's masked logits (plus noise) per position.  Row
     by row: worker actions equal up to the first difference, which is allowed
-    only where the top-2 score margin is below NEAR_TIE (a near-tie that
+    only where the top-2 score margin is below ``near_tie`` (a near-tie that
     summation order may break); log-probs within ``tol`` before it, and the
     tail's action too where the row never diverged.  Returns ``(worst
     log-prob error, rows diverging at a near-tie)``; raises otherwise."""
@@ -421,7 +457,7 @@ def _agree(act, logp, ref_act, ref_logp, scores, nd, tol, what):
         end = act.shape[1] if diff.size == 0 else int(diff[0])
         if diff.size:
             top2 = np.sort(scores[b, end])[-2:]
-            if not top2[1] - top2[0] < NEAR_TIE:
+            if not top2[1] - top2[0] < near_tie:
                 raise AssertionError(f"{what}, row {b}: actions differ at agent {end}, "
                                      f"margin {top2[1] - top2[0]:.3g}")
             flips += 1
@@ -454,18 +490,24 @@ def _scaled_model(torch, cfg, seed):
     return model.to("cuda").eval()
 
 
+def _weight_bytes(weights):
+    return sum(t.numel() * t.element_size() for t in weights)
+
+
 def _ar_bound(cfg, weights, B, has_avail):
     """Least time for the whole decode on this card: per row, ten D x D
     products a block and position, the head, and the attentions over the
     keys seen so far (no early exit: every run does all of it), against the
-    weights read once plus obs_rep, noise, avail and the two outputs.  It
-    ignores that the 101 positions run one after another."""
+    weights read once plus obs_rep (of the trunk's dtype), noise, avail and
+    the two outputs; f32 operations outside the tensor cores, bf16 ones on
+    them.  It ignores that the 101 positions run one after another."""
     A, D, nb, adim = cfg.n_agent, cfg.n_embd, cfg.n_block, cfg.action_dim
+    es = 2 if cfg.dtype == "bfloat16" else 4
     flops = B * (2 * A * (nb * 10 * D * D + D * D + D * adim) + 8 * nb * D * A * (A + 1) // 2)
     n_rows = max(1, A - cfg.n_discrete_agents)
-    nbytes = 4 * (sum(t.numel() for t in weights)
-                  + B * (A * D + A * adim + n_rows * adim + (A * adim if has_avail else 0) + 2 * A))
-    return _roof(nbytes, flops, F32_SIMT_FLOPS)
+    nbytes = (_weight_bytes(weights) + B * es * A * D
+              + 4 * B * (A * adim + n_rows * adim + (A * adim if has_avail else 0) + 2 * A))
+    return _roof(nbytes, flops, PEAK_FLOPS["bfloat16"] if es == 2 else F32_SIMT_FLOPS)
 
 
 def _plan_words(plan):
@@ -604,14 +646,15 @@ def _mj_config(action_type="continuous", n_agent=None):
 def _step_bound(cfg, weights, B, i):
     """Least time for one decode position on this card: the weights read
     once, per row x_in, rep, the cached K/V of positions 0 .. i - 1 read and
-    position i's written, and the logits; against per row 2 (in_dim D + 10
-    n_block D^2 + D^2 + D adim) flops of products and 8 n_block D (i + 1) of
-    attention."""
+    position i's written (of the trunk's dtype), and the logits; against per
+    row 2 (in_dim D + 10 n_block D^2 + D^2 + D adim) flops of products and 8
+    n_block D (i + 1) of attention (f32 outside the tensor cores, bf16 on
+    them)."""
     D, nb, adim, in_dim = cfg.n_embd, cfg.n_block, cfg.action_dim, cfg.action_input_dim
-    nbytes = 4 * (sum(t.numel() for t in weights)
-                  + B * (in_dim + D + adim + 4 * nb * D * (i + 1)))
+    es = 2 if cfg.dtype == "bfloat16" else 4
+    nbytes = _weight_bytes(weights) + B * (es * (in_dim + D + 4 * nb * D * (i + 1)) + 4 * adim)
     flops = B * (2 * (in_dim * D + 10 * nb * D * D + D * D + D * adim) + 8 * nb * D * (i + 1))
-    return _roof(nbytes, flops, F32_SIMT_FLOPS)
+    return _roof(nbytes, flops, PEAK_FLOPS["bfloat16"] if es == 2 else F32_SIMT_FLOPS)
 
 
 def phase2_decode_step(torch):
@@ -743,6 +786,273 @@ def phase2_decode_step(torch):
     return worst, shapes
 
 
+def phase2_attention_bf16(torch):
+    """The attention kernels' bf16 legs timed at the main path's shapes, the
+    bf16 trunk's: the forward at the encoder's (bucket 128 and the rollout's
+    batch), the cached decode step and the update's causal decoder, the
+    backward at the update's; against SDPA in bf16 and the bound at the bf16
+    tensor-core peak."""
+    import torch.nn.functional as F
+
+    from mat_dcml_tpu_torch.ops import cuda_attention as ca
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    H, A, Dh = 2, 101, 32
+    shapes = {}
+
+    def qkv(B, lq):
+        return [torch.randn(B, H, n, Dh, generator=g, device=dev).bfloat16() for n in (lq, A, A)]
+
+    for label, B, lq, causal, mask in (
+            ("encoder", 128, A, False, None), ("encoder_b8", 8, A, False, None),
+            ("update_causal", 100, A, True, None),
+            ("decode", 128, 1, False, torch.arange(A, device=dev) <= A - 1)):
+        q, k, v = qkv(B, lq)
+        sdpa_mask = None if mask is None else mask[None, None, None, :]
+        ms, eager_ms = _time_ms(
+            torch, lambda: ca.fused_masked_attention(q, k, v, causal=causal, kv_mask=mask))
+        plain_ms, _ = _time_ms(torch, lambda: ca.attention_plain(q, k, v, causal=causal,
+                                                                  kv_mask=mask))
+        lib_ms, _ = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=sdpa_mask, is_causal=causal))
+        bound_ms, bound_by = _bound(q, k, mask, "bfloat16", causal)
+        shapes[label] = {"shape": f"q {tuple(q.shape)} k {tuple(k.shape)} bf16, causal {causal}",
+                         "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+                         "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+        say(f"[phase 2] time {label} bf16 {tuple(q.shape)}, device (eager) per call: kernel "
+            f"{ms * 1e3:.2f} ({eager_ms * 1e3:.2f}) us, plain {plain_ms * 1e3:.2f} us, sdpa bf16 "
+            f"{lib_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us ({bound_by}); L2-warm")
+    bwd = {}
+    for label, causal in (("encoder", False), ("decoder_causal", True)):
+        q, k, v = qkv(100, A)
+        do = torch.randn(100, H, A, Dh, generator=g, device=dev).bfloat16()
+        ms, eager_ms = _time_ms(torch, lambda: ca.attention_bwd(q, k, v, do, causal=causal))
+        plain_ms, _ = _time_ms(torch, lambda: ca.attention_bwd_plain(q, k, v, do, causal=causal))
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(*leaves, is_causal=causal)
+
+        lib_fb_ms, _ = _time_ms(torch, lambda: torch.autograd.grad(sdpa(), leaves, do))
+        lib_f_ms, _ = _time_ms(torch, sdpa)
+        bound_ms, bound_by = _bwd_bound(q, causal, "bfloat16")
+        bwd[label] = {"shape": f"q/k/v/dO {tuple(q.shape)} bf16, causal {causal}", "ms": ms,
+                      "eager_ms": eager_ms, "plain_ms": plain_ms,
+                      "library_ms": lib_fb_ms - lib_f_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by}
+        say(f"[phase 2] time bwd {label} bf16 {tuple(q.shape)}, device (eager) per call: kernel "
+            f"{ms * 1e3:.2f} ({eager_ms * 1e3:.2f}) us, plain fwd+bwd {plain_ms * 1e3:.2f} us, "
+            f"sdpa bf16 bwd {(lib_fb_ms - lib_f_ms) * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
+            f"({bound_by}); L2-warm")
+    torch.cuda.synchronize()
+    return shapes, bwd
+
+
+def phase2_ar_decode_bf16(torch):
+    """ar_decode's bf16 leg against its plain twin at full DCML width (B 1-128,
+    noise on and off), on the device-memory path (n_embd 256), a planted
+    fault, and its, the plain twin's and the bf16 cached decode's times."""
+    import dataclasses
+
+    from mat_dcml_tpu_torch.models.decode import cached_decode
+    from mat_dcml_tpu_torch.ops import ar_decode as ard
+    from mat_dcml_tpu_torch.ops.distributions import gumbel_noise
+
+    dev = torch.device("cuda")
+    base = dataclasses.replace(_dcml_config(), dtype="bfloat16")
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+
+    def inputs(cfg, B, noise):
+        A, adim = cfg.n_agent, cfg.action_dim
+        rep = torch.randn(B, A, cfg.n_embd, generator=g, device=dev).bfloat16()
+        gumbel = (gumbel_noise((B, A, adim), g, dev) if noise
+                  else torch.zeros(B, A, adim, device=dev))
+        normal = torch.randn(B, 1, adim, generator=g, device=dev) * float(noise)
+        avail = (torch.rand(B, A, adim, generator=g, device=dev) > 0.2).float()
+        avail[..., 0] = 1.0
+        return rep, gumbel, normal, avail
+
+    def plan_of(cfg, B):
+        return ard.kernel_plan(B, cfg.n_agent, n_embd=cfg.n_embd, n_head=cfg.n_head,
+                               n_block=cfg.n_block, adim=cfg.action_dim, dtype=torch.bfloat16)
+
+    worst, flips_total, shapes = 0.0, 0, {}
+    cases = [(base, B, noise) for B in BF16_CHECK_BATCHES for noise in (False, True)]
+    cases += [(dataclasses.replace(base, n_embd=WIDE_EMBD), B, True) for B in (1, 9)]
+    models = {}
+    with torch.no_grad():
+        for cfg, B, noise in cases:
+            if cfg.n_embd not in models:
+                models[cfg.n_embd] = ard.pack_ar_decode_weights(_scaled_model(torch, cfg, SEED + 3))
+            weights = models[cfg.n_embd]
+            kw = dict(n_head=cfg.n_head, adim=cfg.action_dim, nd=cfg.n_discrete_agents)
+            x = inputs(cfg, B, noise)
+            act, logp = ard.fused_ar_decode(weights, *x, **kw)
+            torch.cuda.synchronize()
+            ref = ard.ar_decode_plain(weights, *x, return_scores=True, **kw)
+            plan = plan_of(cfg, B)
+            label = (f"bf16 n_embd {cfg.n_embd} B {B} {'noise' if noise else 'deterministic'} "
+                     f"({_plan_words(plan)})")
+            err, flips = _agree(*(t.cpu().numpy() for t in (act, logp, *ref)),
+                                cfg.n_discrete_agents, BF16_AR_TOL, f"ar_decode {label}",
+                                near_tie=BF16_NEAR_TIE)
+            worst, flips_total = max(worst, err), flips_total + flips
+            say(f"[phase 2] ar_decode {label}: max|logp kernel - plain| {err:.3g} (tol "
+                f"{BF16_AR_TOL}), rows diverging at a near-tie ({BF16_NEAR_TIE}) {flips}")
+        cfg = base
+        weights = models[cfg.n_embd]
+        A, D, adim, nd = cfg.n_agent, cfg.n_embd, cfg.action_dim, cfg.n_discrete_agents
+        kw = dict(n_head=cfg.n_head, adim=adim, nd=nd)
+        x = inputs(cfg, 8, True)
+        ref_act, ref_logp = ard.ar_decode_plain(weights, *x, **kw)
+        rep_f = x[0].clone()
+        rep_f[:, 50] = x[0][:, 49]
+        f_act, f_logp = ard.ar_decode_plain(weights, rep_f, *x[1:], **kw)
+        fault = (f_logp - ref_logp).abs().max().item()
+        say(f"[phase 2] ar_decode bf16 planted fault (agent 50's rep replaced, B 8): max|logp "
+            f"diff| {fault:.3g} (tol {BF16_AR_TOL})")
+        if not fault >= BF16_FAULT_FACTOR * BF16_AR_TOL:
+            raise AssertionError(f"bf16 ar_decode tolerance would pass a replaced rep ({fault})")
+        model = _scaled_model(torch, cfg, SEED + 3)
+        for B in AR_BATCHES:
+            rep, gumbel, normal, avail = inputs(cfg, B, True)
+            tail = torch.zeros(A, B, adim, device=dev)
+            tail[nd:] = normal.transpose(0, 1)
+            ms, eager_ms = _time_ms(
+                torch, lambda: ard.fused_ar_decode(weights, rep, gumbel, normal, avail, **kw),
+                iters=20)
+            plain_ms, _ = _time_ms(
+                torch, lambda: ard.ar_decode_plain(weights, rep, gumbel, normal, avail, **kw),
+                iters=2)
+            cached_ms, _ = _time_ms(torch, lambda: cached_decode(
+                model, rep, avail, False, gumbel=gumbel, tail_noise=tail), iters=2)
+            bound_ms, bound_by = _ar_bound(cfg, weights, B, True)
+            plan = plan_of(cfg, B)
+            shapes[B] = {"shape": f"obs_rep ({B}, {A}, {D}) bf16, noise, avail masked",
+                         "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+                         "cached_decode_ms": cached_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "barriers": plan.barriers}
+            say(f"[phase 2] time ar_decode bf16 B {B}, device (eager) per call: kernel {ms:.3f} "
+                f"({eager_ms:.3f}) ms, plain {plain_ms:.2f} ms, bf16 cached decode "
+                f"{cached_ms:.2f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by}); "
+                f"{plan.clusters} clusters, {_plan_words(plan)}, {plan.smem_bytes} B shared "
+                f"memory a CTA, {plan.barriers} cluster barriers a position; L2-warm")
+    torch.cuda.synchronize()
+    return worst, flips_total, fault, shapes
+
+
+def phase2_decode_step_bf16(torch):
+    """decode_step's bf16 leg against its plain twin for both continuous
+    families at MuJoCo 10x2 (B 1-128, the first and last positions; logits
+    and every cache), on the device-memory path (n_embd 256), a planted
+    fault, and its, the plain twin's and the bf16 cached step's times."""
+    import dataclasses
+
+    from mat_dcml_tpu_torch.ops import decode_step as dst
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    bf = torch.bfloat16
+
+    def plan_of(cfg, B):
+        return dst.kernel_plan(B, cfg.n_agent, cfg.action_input_dim, n_embd=cfg.n_embd,
+                               n_head=cfg.n_head, n_block=cfg.n_block, adim=cfg.action_dim,
+                               dtype=bf)
+
+    def step_inputs(cfg, B):
+        A, D, nb = cfg.n_agent, cfg.n_embd, cfg.n_block
+        caches = dst.decode_caches(nb, A, B, D, dev, dtype=bf)
+        caches.copy_(torch.randn(caches.shape, generator=g, device=dev))
+        x_in = torch.randn(B, cfg.action_input_dim, generator=g, device=dev).to(bf)
+        rep = torch.randn(B, A, D, generator=g, device=dev).to(bf)
+        return x_in, rep, caches
+
+    def moved(a, b):
+        """The rows whose logits moved by more than BF16_MOVED."""
+        return int(((a - b).abs() > BF16_MOVED).any(dim=-1).sum())
+
+    worst, worst_share, shapes = 0.0, 0.0, {}
+    cases = [(dataclasses.replace(_mj_config(family), dtype="bfloat16"), B, i)
+             for family in ("continuous", "available_continuous") for B in BF16_CHECK_BATCHES
+             for i in (0, 9)]
+    cases += [(dataclasses.replace(_mj_config(), n_embd=WIDE_EMBD, dtype="bfloat16"), B, 9)
+              for B in (3, 9)]
+    models = {}
+    with torch.no_grad():
+        for cfg, B, i in cases:
+            key = (cfg.action_type, cfg.n_embd)
+            if key not in models:
+                models[key] = dst.pack_decode_weights(_scaled_model(torch, cfg, SEED + 6))
+            weights = models[key]
+            x_in, rep, caches = step_inputs(cfg, B)
+            mine, ref = caches.clone(), caches.clone()
+            kw = dict(n_head=cfg.n_head, adim=cfg.action_dim)
+            out = dst.fused_decode_step(weights, x_in, rep[:, i], mine, i, **kw)
+            torch.cuda.synchronize()
+            want = dst.decode_step_plain(weights, x_in, rep[:, i], ref, i, **kw)
+            err = (out - want).abs().max().item()
+            cerr = (mine.float() - ref.float()).abs().max().item()
+            rows = moved(out, want)
+            share = rows / B
+            worst, worst_share = max(worst, err, cerr), max(worst_share, share)
+            plan = plan_of(cfg, B)
+            label = (f"bf16 {cfg.action_type} n_embd {cfg.n_embd} B {B} i {i} "
+                     f"({_plan_words(plan)})")
+            most = max(1, int(BF16_MOVED_SHARE * B))
+            say(f"[phase 2] decode_step {label}: max|kernel - plain| logits {err:.3g} (tol "
+                f"{BF16_STEP_TOL}), caches {cerr:.3g} (tol {BF16_CACHE_TOL}); rows moved by "
+                f"> {BF16_MOVED}: {rows} of {B} (at most {most})")
+            if not (err <= BF16_STEP_TOL and cerr <= BF16_CACHE_TOL and rows <= most):
+                raise AssertionError(f"decode_step {label}: {err}, {cerr}, {share}")
+        # what the check must catch: the plain twin with agent mid's cached
+        # self-attention key replaced by the one before it (B 8, last position)
+        cfg = dataclasses.replace(_mj_config(), dtype="bfloat16")
+        A, D, nb, adim = cfg.n_agent, cfg.n_embd, cfg.n_block, cfg.action_dim
+        weights = models[(cfg.action_type, D)]
+        kw = dict(n_head=cfg.n_head, adim=adim)
+        x_in, rep, caches = step_inputs(cfg, 8)
+        faulty = caches.clone()
+        faulty[0, A // 2] = caches[0, A // 2 - 1]
+        ref = dst.decode_step_plain(weights, x_in, rep[:, A - 1], caches.clone(), A - 1, **kw)
+        bad = dst.decode_step_plain(weights, x_in, rep[:, A - 1], faulty, A - 1, **kw)
+        fault_share = moved(bad, ref) / 8
+        say(f"[phase 2] decode_step bf16 planted fault (agent {A // 2}'s cached key replaced, "
+            f"B 8): rows moved by > {BF16_MOVED}: {fault_share:.3f}, max|logits diff| "
+            f"{(bad - ref).abs().max().item():.3g}")
+        if not fault_share >= BF16_FAULT_FACTOR * BF16_MOVED_SHARE:
+            raise AssertionError(f"the bf16 decode_step check would pass a replaced key "
+                                 f"({fault_share})")
+        model = _scaled_model(torch, cfg, SEED + 6)
+        i = A - 1
+        valid = torch.arange(A, device=dev) <= i
+        for B in AR_BATCHES:
+            x_in, rep, caches = step_inputs(cfg, B)
+            ms, eager_ms = _time_ms(torch, lambda: dst.fused_decode_step(
+                weights, x_in, rep[:, i], caches, i, **kw))
+            plain_ms, _ = _time_ms(torch, lambda: dst.decode_step_plain(
+                weights, x_in, rep[:, i], caches, i, **kw), iters=20)
+            kv = model.fresh_packed_cache(B)
+            q2 = model.decode_queries(rep)
+            cached_ms, _ = _time_ms(torch, lambda: model.decode_step_cached(
+                x_in[:, None], rep[:, i:i + 1], q2[:, :, :, i:i + 1], kv, i, valid), iters=20)
+            bound_ms, bound_by = _step_bound(cfg, weights, B, i)
+            plan = plan_of(cfg, B)
+            shapes[B] = {"shape": f"B {B}, A {A}, D {D}, in_dim {cfg.action_input_dim}, adim "
+                                  f"{adim}, position {i}, bf16",
+                         "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+                         "cached_step_ms": cached_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "barriers": plan.barriers}
+            say(f"[phase 2] time decode_step bf16 B {B} A {A} i {i}, device (eager) per call: "
+                f"kernel {ms * 1e3:.2f} ({eager_ms * 1e3:.2f}) us, plain {plain_ms * 1e3:.2f} us, "
+                f"bf16 cached decode step {cached_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.3f} us "
+                f"({bound_by}); {plan.clusters} clusters, {_plan_words(plan)}, "
+                f"{plan.smem_bytes} B shared memory a CTA, {plan.barriers} cluster barriers a "
+                f"launch; L2-warm")
+    torch.cuda.synchronize()
+    return worst, worst_share, fault_share, shapes
+
+
 def _dcml_config():
     from mat_dcml_tpu_torch.envs.dcml.constants import DCMLConsts
     from mat_dcml_tpu_torch.models.mat import SEMI_DISCRETE, MATConfig
@@ -822,10 +1132,10 @@ def _match_bucket8(torch, cfg, params, engines):
             f"rows diverging at a near-tie: {flips}")
 
 
-def phase3_serve(torch, params, mode, cfg=None, tag="phase 3"):
-    """Serve the 96 requests through batcher -> engine(decode_mode=mode),
-    with the DCML policy or the one of ``cfg``; returns ``(engine, batcher,
-    (attention_fwd, ar_decode, decode_step launches))``."""
+def phase3_serve(torch, params, mode, cfg=None, tag="phase 3", serve_dtype="f32"):
+    """Serve the 96 requests through batcher -> engine(decode_mode=mode,
+    serve_dtype), with the DCML policy or the one of ``cfg``; returns
+    ``(engine, batcher, (attention_fwd, ar_decode, decode_step launches))``."""
     import numpy as np
 
     from mat_dcml_tpu_torch.models.decode import CONTINUOUS_FAMILIES
@@ -837,13 +1147,18 @@ def phase3_serve(torch, params, mode, cfg=None, tag="phase 3"):
 
     cfg = cfg or _dcml_config()
     continuous = cfg.action_type in CONTINUOUS_FAMILIES
-    engine = DecodeEngine(params, cfg, EngineConfig(buckets=BUCKETS, decode_mode=mode),
-                          log_fn=lambda m: say(f"[{tag}] {mode}: {m}"))
+    if serve_dtype != "f32":
+        mode_tag = f"{mode} {serve_dtype}"
+    else:
+        mode_tag = mode
+    engine = DecodeEngine(params, cfg, EngineConfig(buckets=BUCKETS, decode_mode=mode,
+                                                    serve_dtype=serve_dtype),
+                          log_fn=lambda m: say(f"[{tag}] {mode_tag}: {m}"))
     if engine.device.type != "cuda":
         raise AssertionError(f"engine defaulted to {engine.device}")
     engine.warmup()
     batcher = ContinuousBatcher(engine, BatcherConfig(max_batch_wait_ms=5.0),
-                                log_fn=lambda m: say(f"[{tag}] {mode}: {m}"))
+                                log_fn=lambda m: say(f"[{tag}] {mode_tag}: {m}"))
 
     n_req = N_CLIENTS * REQUESTS_PER_CLIENT
     state, obs, avail = _requests(cfg, n_req, seed=SEED)
@@ -893,7 +1208,7 @@ def phase3_serve(torch, params, mode, cfg=None, tag="phase 3"):
         per = (nb + A * 2 * nb, 0, 0)
     else:
         per = (nb, 0, A) if continuous else (nb, 1, 0)
-    say(f"[{tag}] {mode}: served {n_req} requests from {N_CLIENTS} clients in {n_dispatch} "
+    say(f"[{tag}] {mode_tag}: served {n_req} requests from {N_CLIENTS} clients in {n_dispatch} "
         f"dispatches { {b: n for b, n in dispatches.items() if n} }; attention_fwd / ar_decode "
         f"/ decode_step launches {launches} (expected {per} per dispatch)")
     if launches != tuple(p * n_dispatch for p in per) or n_dispatch == 0:
@@ -917,11 +1232,93 @@ def phase3_serve(torch, params, mode, cfg=None, tag="phase 3"):
     what = (f"actions mean {act.mean():.4f}, std {act.std():.4f}" if continuous else
             f"worker actions mean {act[:, :-1].mean():.3f}, coding ratio mean "
             f"{act[:, -1].mean():.4f}")
-    say(f"[{tag}] {mode}: {n_req / wall:.2f} requests/s; latency p50 "
+    say(f"[{tag}] {mode_tag}: {n_req / wall:.2f} requests/s; latency p50 "
         f"{np.percentile(lat, 50):.2f} ms, p99 {np.percentile(lat, 99):.2f} ms; engine decode "
         f"p50 {engine.telemetry.hists['serving_decode_ms'].quantile(0.5):.2f} ms; {what}")
     torch.cuda.synchronize()
     return engine, batcher, launches
+
+
+def canary_mismatches(act, logp, ref_act, ref_logp, nd):
+    """The JAX canary's verdict per request (``serving/rollout_ctl.py``
+    ``compare``) for a bf16 trunk against f32, rows of ``(B, A, 1)``
+    arrays: a request mismatches where its greedy (worker) actions differ,
+    or else where its log-probs are not within CANARY_RTOL / CANARY_ATOL.
+    Returns the count."""
+    import numpy as np
+
+    bad = 0
+    for b in range(act.shape[0]):
+        if not np.array_equal(act[b, :nd], ref_act[b, :nd]):
+            bad += 1
+        elif not np.allclose(logp[b], ref_logp[b], rtol=CANARY_RTOL, atol=CANARY_ATOL):
+            bad += 1
+    return bad
+
+
+def _match_bucket8_bf16(torch, cfg, params, engines16, engines32, tag):
+    """A bucket-8 decode by each bf16 engine on the card against the port's
+    bf16 engine on the CPU in the same mode (the kernels' and cuBLAS's sums
+    against the CPU's: BF16_LOGP_VS_CPU, near-ties at BF16_NEAR_TIE), and
+    against the card's f32 engine within the JAX canary contract (the
+    discrete families; a continuous family's distance is printed)."""
+    import numpy as np
+
+    from mat_dcml_tpu_torch.models.decode import CONTINUOUS_FAMILIES
+    from mat_dcml_tpu_torch.models.mat import MultiAgentTransformer
+    from mat_dcml_tpu_torch.serving.engine import DecodeEngine, EngineConfig, serve_cast
+
+    continuous = cfg.action_type in CONTINUOUS_FAMILIES
+    state, obs, avail = _requests(cfg, 8, seed=SEED + 1)
+    card16 = {m: e.decode(state, obs, avail) for m, e in engines16.items()}
+    card32 = {m: e.decode(state, obs, avail) for m, e in engines32.items()}
+    cpu16 = {m: DecodeEngine(params, cfg, EngineConfig(buckets=(8,), decode_mode=m,
+                                                        serve_dtype="bf16"),
+                             device="cpu", log_fn=lambda *_: None).decode(state, obs, avail)
+             for m in engines16}
+    if not continuous:
+        import dataclasses
+
+        model = MultiAgentTransformer(dataclasses.replace(cfg, dtype="bfloat16"), device="cpu")
+        model.load_state_dict(params)
+        serve_cast(model)
+        ref_act = cpu16["cached"][0]
+        sh = np.zeros((8, cfg.n_agent, cfg.action_input_dim), np.float32)
+        sh[:, 0, 0] = 1.0
+        idx = ref_act[:, :-1, 0].astype(int).clip(0, cfg.action_dim - 1)
+        for i in range(1, cfg.n_agent):
+            sh[np.arange(8), i, 1 + idx[:, i - 1]] = 1.0
+        with torch.inference_mode():
+            _, _, logits = model(*(torch.from_numpy(x) for x in (state, obs, sh)))
+        scores = np.where(avail == 0, -1e10, logits.float().numpy())
+    worst = 0.0
+    for m in engines16:
+        (act, logp), (r_act, r_logp) = card16[m], cpu16[m]
+        if continuous:
+            err = max(float(np.abs(act - r_act).max()), float(np.abs(logp - r_logp).max()))
+            flips = 0
+            if not err <= BF16_LOGP_VS_CPU:
+                raise AssertionError(f"bf16 {m} card vs CPU: {err}")
+        else:
+            err, flips = _agree(act[..., 0], logp[..., 0], r_act[..., 0], r_logp[..., 0], scores,
+                                cfg.n_discrete_agents, BF16_LOGP_VS_CPU, f"bf16 {m} card vs CPU",
+                                near_tie=BF16_NEAR_TIE)
+        worst = max(worst, err)
+        say(f"[{tag}] bucket 8 bf16 {m} card vs CPU: max|diff| {err:.3g} (tol "
+            f"{BF16_LOGP_VS_CPU}), rows diverging at a near-tie ({BF16_NEAR_TIE}) {flips}")
+        (a32, l32) = card32[m]
+        dist = float(np.abs(logp - l32).max())
+        if continuous:
+            say(f"[{tag}] bucket 8 {m} bf16 vs f32 engine on the card: max|logp diff| "
+                f"{dist:.3g}, max|action diff| {float(np.abs(act - a32).max()):.3g}")
+            continue
+        bad = canary_mismatches(act, logp, a32, l32, cfg.n_discrete_agents)
+        say(f"[{tag}] bucket 8 {m} bf16 vs f32 engine on the card, the JAX canary contract "
+            f"(rtol {CANARY_RTOL}, atol {CANARY_ATOL}; at most {1 - CANARY_GREEDY:.0%} of "
+            f"requests mismatched): {bad} of 8 mismatched; max|logp diff| {dist:.3g}")
+        if bad > (1 - CANARY_GREEDY) * 8:
+            raise AssertionError(f"bf16 {m} engine fails the canary contract: {bad} of 8")
+    return worst
 
 
 def phase4_close(torch, batcher):
@@ -955,7 +1352,8 @@ def _to_cpu(x):
 def _match_cpu_update(torch, runner, ppo, train_state, rollout_state, tag="phase 5"):
     """One more collect on the card, then the same PPO update on the card
     and by the port on the CPU from copies of the trajectory, weights, Adam
-    state, ValueNorm and permutations.  Returns the card update's launches."""
+    state, ValueNorm and permutations.  Returns the card update's launches.
+    A bf16 trunk is held to the bf16 bounds (BF16_UPDATE_*)."""
     import numpy as np
 
     from mat_dcml_tpu_torch.models.policy import TransformerPolicy
@@ -987,6 +1385,9 @@ def _match_cpu_update(torch, runner, ppo, train_state, rollout_state, tag="phase
     cpu_s = time.perf_counter() - t0
 
     steps = ppo.ppo_epoch * ppo.num_mini_batch
+    if runner.policy.cfg.dtype == "bfloat16":
+        return _match_cpu_update_bf16(runner, cpu_policy, before, met, cmet, steps, ppo.lr,
+                                      launches, card_s, cpu_s, tag)
     tol = UPDATE_TOL_FRACTION * ppo.lr * steps
     diff = key_bias_diff = moved = 0.0
     for (name, p), q, b in zip(runner.policy.model.named_parameters(),
@@ -1019,6 +1420,142 @@ def _match_cpu_update(torch, runner, ppo, train_state, rollout_state, tag="phase
         + ", ".join(f"{n} {float(getattr(met, n)):.6g}/{float(getattr(cmet, n)):.6g}"
                     for n in ("value_loss", "policy_loss", "dist_entropy", "grad_norm")))
     return launches
+
+
+def _match_cpu_update_bf16(runner, cpu_policy, before, met, cmet, steps, lr, launches, card_s,
+                           cpu_s, tag):
+    """The bf16 update's card-vs-CPU check: every weight within
+    BF16_UPDATE_RTOL / BF16_UPDATE_ATOL of the CPU's but the key
+    projections' biases (2 lr a step), the update moved the weights, and
+    the value loss within BF16_VALUE_LOSS_RTOL."""
+    import numpy as np
+
+    worst = key_bias_diff = moved = 0.0
+    for (name, p), q, b in zip(runner.policy.model.named_parameters(),
+                               cpu_policy.model.parameters(), before):
+        a = p.detach().cpu()
+        d = (a - q).abs()
+        moved = max(moved, (a - b).abs().max().item())
+        if name.endswith("key_p.bias"):
+            key_bias_diff = max(key_bias_diff, d.max().item())
+            continue
+        worst = max(worst, (d - BF16_UPDATE_RTOL * q.abs()).max().item())
+    say(f"[{tag}] one bf16 update ({steps} Adam steps) card vs CPU port: every weight within "
+        f"rtol {BF16_UPDATE_RTOL} + atol {BF16_UPDATE_ATOL} (worst excess over the rtol part "
+        f"{worst:.3g}), key_p biases {key_bias_diff:.3g} (tol 2 x lr x steps = "
+        f"{2 * lr * steps:.3g}); the update moved weights by up to {moved:.3g}; card "
+        f"{card_s:.2f}s, CPU {cpu_s:.2f}s")
+    if not (worst <= BF16_UPDATE_ATOL and key_bias_diff <= 2 * lr * steps and moved > 0):
+        raise AssertionError(f"bf16 card update differs from the CPU port: {worst}, key_p "
+                             f"biases {key_bias_diff}, moved {moved}")
+    a, b = float(met.value_loss), float(cmet.value_loss)
+    if not (np.isfinite(a) and abs(a - b) <= BF16_VALUE_LOSS_RTOL * abs(b)):
+        raise AssertionError(f"bf16 value_loss card {a} vs CPU {b}")
+    say(f"[{tag}] bf16 metrics card vs CPU (value_loss within rtol {BF16_VALUE_LOSS_RTOL}): "
+        + ", ".join(f"{n} {float(getattr(met, n)):.6g}/{float(getattr(cmet, n)):.6g}"
+                    for n in ("value_loss", "policy_loss", "dist_entropy", "grad_norm")))
+    return launches
+
+
+def phase5_bf16_training(torch):
+    """One DCML iteration of the recipe with a bf16 trunk in cached and one
+    in scan mode, launches counted, then the card-vs-CPU check after one
+    more bf16 update; returns ``{mode: (attention_fwd, attention_bwd,
+    ar_decode)}`` and the records."""
+    import math
+    import tempfile
+
+    from mat_dcml_tpu_torch.config import RunConfig
+    from mat_dcml_tpu_torch.ops import ar_decode as ard
+    from mat_dcml_tpu_torch.ops import cuda_attention as ca
+    from mat_dcml_tpu_torch.training.ppo import PPOConfig
+    from mat_dcml_tpu_torch.training.runner import DCMLRunner
+
+    ppo = PPOConfig()
+    launches, records = {}, {}
+    for mode in ("cached", "scan"):
+        with tempfile.TemporaryDirectory() as run_dir:
+            run = RunConfig(seed=SEED, log_interval=1, run_dir=run_dir, decode_mode=mode,
+                            model_dtype="bfloat16")
+            runner = DCMLRunner(run, ppo, log_fn=lambda m: say(f"[phase 5] bf16 {mode}: {m}"))
+            cfg = runner.policy.cfg
+            if cfg.dtype != "bfloat16" or runner.device.type != "cuda":
+                raise AssertionError(f"bf16 runner built {cfg.dtype} on {runner.device}")
+            train_state, rollout_state = runner.setup()
+            torch.cuda.synchronize()
+            ca.launches = ca.bwd_launches = ard.launches = 0
+            train_state, rollout_state = runner.train_loop(1, train_state, rollout_state)
+            torch.cuda.synchronize()
+            launches[mode] = (ca.launches, ca.bwd_launches, ard.launches)
+            record = records[mode] = runner.records[0]
+            _, _, upd_fwd, upd_bwd = _expected_launches(cfg, run, ppo, 1)
+            nb, A, T = cfg.n_block, cfg.n_agent, run.episode_length
+            collect = (T * (nb + A * 2 * nb), 0) if mode == "cached" else (T * nb, T)
+            want = (collect[0] + upd_fwd, upd_bwd, collect[1])
+            it = record["step_time_collect"] + record["step_time_train"]
+            say(f"[phase 5] bf16 {mode} iteration: collect {record['step_time_collect']:.3f}s, "
+                f"update {record['step_time_train']:.3f}s ({record['step_time_train'] / it:.1%} "
+                f"of {it:.3f}s), fps {record['fps']:.1f}; avg_r "
+                f"{record['average_step_rewards']:.2f}, value_loss {record['value_loss']:.4f}, "
+                f"entropy {record['dist_entropy']:.4f}; attention_fwd / attention_bwd / "
+                f"ar_decode launches {launches[mode]} (expected {want})")
+            if launches[mode] != want:
+                raise AssertionError(f"bf16 {mode} iteration launched {launches[mode]}, "
+                                     f"expected {want}")
+            if not all(math.isfinite(v) for v in record.values()):
+                raise AssertionError(f"bf16 {mode} iteration metrics not finite: {record}")
+            if mode == "scan":
+                card = _match_cpu_update(torch, runner, ppo, train_state, rollout_state)
+                if card != (upd_fwd, upd_bwd):
+                    raise AssertionError(f"one bf16 update launched {card}, expected "
+                                         f"{(upd_fwd, upd_bwd)}")
+    torch.cuda.synchronize()
+    return launches, records
+
+
+def phase7_mujoco_bf16(torch):
+    """One MujocoRunner scan iteration at manyagent_ant 10x2 with a bf16
+    trunk (500 launches of decode_step's bf16 leg); returns
+    ``(attention_fwd, attention_bwd, decode_step)`` launches and the record."""
+    import math
+    import tempfile
+
+    from mat_dcml_tpu_torch.config import RunConfig
+    from mat_dcml_tpu_torch.envs.mamujoco.lite import MJLiteConfig
+    from mat_dcml_tpu_torch.ops import cuda_attention as ca
+    from mat_dcml_tpu_torch.ops import decode_step as dst
+    from mat_dcml_tpu_torch.training.mujoco_runner import MujocoRunner
+    from mat_dcml_tpu_torch.training.ppo import PPOConfig
+
+    ppo = PPOConfig()
+    with tempfile.TemporaryDirectory() as run_dir:
+        run = RunConfig(env_name="mujoco", scenario=f"{MJ_SCENARIO}_{MJ_CONF}", seed=SEED,
+                        log_interval=1, run_dir=run_dir, decode_mode="scan",
+                        model_dtype="bfloat16")
+        runner = MujocoRunner(run, ppo, MJLiteConfig(scenario=MJ_SCENARIO, agent_conf=MJ_CONF,
+                                                     episode_length=run.episode_length),
+                              log_fn=lambda m: say(f"[phase 7] bf16 scan: {m}"))
+        cfg = runner.policy.cfg
+        train_state, rollout_state = runner.setup()
+        torch.cuda.synchronize()
+        ca.launches = ca.bwd_launches = dst.launches = 0
+        runner.train_loop(1, train_state, rollout_state)
+        torch.cuda.synchronize()
+        launches = (ca.launches, ca.bwd_launches, dst.launches)
+        record = runner.records[0]
+    _, _, upd_fwd, upd_bwd = _expected_launches(cfg, run, ppo, 1)
+    T = run.episode_length
+    want = (T * cfg.n_block + upd_fwd, upd_bwd, T * cfg.n_agent)
+    it = record["step_time_collect"] + record["step_time_train"]
+    say(f"[phase 7] bf16 scan iteration: collect {record['step_time_collect']:.3f}s, update "
+        f"{record['step_time_train']:.3f}s ({record['step_time_train'] / it:.1%} of {it:.3f}s), "
+        f"fps {record['fps']:.1f}; value_loss {record['value_loss']:.4f}; attention_fwd / "
+        f"attention_bwd / decode_step launches {launches} (expected {want})")
+    if launches != want or cfg.dtype != "bfloat16":
+        raise AssertionError(f"bf16 MuJoCo scan iteration launched {launches}, expected {want}")
+    if not all(math.isfinite(v) for v in record.values()):
+        raise AssertionError(f"bf16 MuJoCo scan iteration metrics not finite: {record}")
+    return launches, record
 
 
 def phase5_training(torch):
@@ -1140,8 +1677,9 @@ def _match_continuous_bucket8(torch, cfg, params, engines, tag):
 
 
 def phase6_continuous_serving(torch):
-    """The continuous MuJoCo policy served in cached then scan mode; returns
-    ``{mode: (attention_fwd, ar_decode, decode_step) launches}``."""
+    """The continuous MuJoCo policy served in cached then scan mode, in f32
+    then with a bf16 trunk; returns ``{mode: (attention_fwd, ar_decode,
+    decode_step) launches}`` for each."""
     cfg = _mj_config()
     params = _scaled_model(torch, cfg, SEED + 7).cpu().state_dict()
     say(f"[phase 6] {MJ_SCENARIO} {MJ_CONF}: {cfg.n_agent} agents, action {cfg.action_dim}, obs "
@@ -1153,7 +1691,13 @@ def phase6_continuous_serving(torch):
                                                               tag="phase 6")
         phase4_close(torch, batcher)
     _match_continuous_bucket8(torch, cfg, params, engines, "phase 6")
-    return launches
+    engines16, launches16 = {}, {}
+    for mode in ("cached", "scan"):
+        engines16[mode], batcher, launches16[mode] = phase3_serve(
+            torch, params, mode, cfg, tag="phase 6", serve_dtype="bf16")
+        phase4_close(torch, batcher)
+    _match_bucket8_bf16(torch, cfg, params, engines16, engines, "phase 6")
+    return launches, launches16
 
 
 def phase7_mujoco_training(torch):
@@ -1238,11 +1782,17 @@ def main() -> int:
     card = phase0_environment(torch)
     torch.cuda.synchronize()
     phase1_build()
+    say(f"[time] build done at {time.perf_counter() - t_start:.1f}s")
     torch.cuda.synchronize()
     errs, shapes = phase2_kernels(torch)
     bwd_errs, bwd_shapes = phase2_backward(torch)
     ar_err, ar_shapes = phase2_ar_decode(torch)
     step_err, step_shapes = phase2_decode_step(torch)
+    say(f"[time] f32 kernel checks done at {time.perf_counter() - t_start:.1f}s")
+    attn16, attn16_bwd = phase2_attention_bf16(torch)
+    ar16_err, ar16_flips, ar16_fault, ar16_shapes = phase2_ar_decode_bf16(torch)
+    st16_err, st16_share, st16_fault, st16_shapes = phase2_decode_step_bf16(torch)
+    say(f"[time] bf16 kernel checks done at {time.perf_counter() - t_start:.1f}s")
     from mat_dcml_tpu_torch.models.mat import MultiAgentTransformer
 
     params = MultiAgentTransformer(
@@ -1252,21 +1802,58 @@ def main() -> int:
         engines[mode], batcher, serve[mode] = phase3_serve(torch, params, mode)
         phase4_close(torch, batcher)
     _match_bucket8(torch, _dcml_config(), params, engines)
+    engines16, serve16 = {}, {}
+    for mode in ("cached", "scan"):
+        engines16[mode], batcher, serve16[mode] = phase3_serve(torch, params, mode,
+                                                               serve_dtype="bf16")
+        phase4_close(torch, batcher)
+    _match_bucket8_bf16(torch, _dcml_config(), params, engines16, engines, "phase 3")
+    say(f"[time] serving done at {time.perf_counter() - t_start:.1f}s")
     train_fwd, train_bwd, records = phase5_training(torch)
     (scan_fwd, scan_bwd, scan_ar), _ = phase5_scan_iteration(torch, records)
-    cont_serve = phase6_continuous_serving(torch)
+    say(f"[time] f32 DCML training done at {time.perf_counter() - t_start:.1f}s")
+    train16, _ = phase5_bf16_training(torch)
+    say(f"[time] bf16 DCML training done at {time.perf_counter() - t_start:.1f}s")
+    cont_serve, cont_serve16 = phase6_continuous_serving(torch)
     mj_train = phase7_mujoco_training(torch)
+    mj16, _ = phase7_mujoco_bf16(torch)
+    say(f"[time] MuJoCo done at {time.perf_counter() - t_start:.1f}s")
     probe_rows, probe_verdicts, probe_launches = phase8_probe(torch)
 
     dec = shapes["decode"]
     f32_err = max(e for (_, dt), e in errs.items() if dt == "float32")
     bf16_err = max(e for (_, dt), e in errs.items() if dt == "bfloat16")
-    fwd_paths = {"serving_cached": serve["cached"][0], "serving_scan": serve["scan"][0],
-                 "training_cached": train_fwd, "training_scan": scan_fwd,
-                 "serving_continuous_cached": cont_serve["cached"][0],
-                 "serving_continuous_scan": cont_serve["scan"][0],
-                 "training_mujoco_cached": mj_train["cached"][0],
-                 "training_mujoco_scan": mj_train["scan"][0]}
+    # (attention_fwd, attention_bwd, ar_decode, decode_step) launches of each
+    # bf16 path
+    paths16 = {"serving_bf16_cached": serve16["cached"][:1] + (0,) + serve16["cached"][1:],
+               "serving_bf16_scan": serve16["scan"][:1] + (0,) + serve16["scan"][1:],
+               "training_bf16_cached": train16["cached"] + (0,),
+               "training_bf16_scan": train16["scan"] + (0,),
+               "serving_continuous_bf16_cached": (cont_serve16["cached"][0], 0)
+               + cont_serve16["cached"][1:],
+               "serving_continuous_bf16_scan": (cont_serve16["scan"][0], 0)
+               + cont_serve16["scan"][1:],
+               "training_mujoco_bf16_scan": mj16[:2] + (0, mj16[2])}
+
+    def with16(paths, k):
+        return {**paths, **{name: n[k] for name, n in paths16.items()}}
+
+    fwd_paths = with16({"serving_cached": serve["cached"][0], "serving_scan": serve["scan"][0],
+                        "training_cached": train_fwd, "training_scan": scan_fwd,
+                        "serving_continuous_cached": cont_serve["cached"][0],
+                        "serving_continuous_scan": cont_serve["scan"][0],
+                        "training_mujoco_cached": mj_train["cached"][0],
+                        "training_mujoco_scan": mj_train["scan"][0]}, 0)
+    bwd_paths = with16({"serving_cached": 0, "serving_scan": 0, "training_cached": train_bwd,
+                        "training_scan": scan_bwd, "serving_continuous_cached": 0,
+                        "serving_continuous_scan": 0,
+                        "training_mujoco_cached": mj_train["cached"][1],
+                        "training_mujoco_scan": mj_train["scan"][1]}, 1)
+    ar_paths = with16({"serving_cached": serve["cached"][1], "serving_scan": serve["scan"][1],
+                       "training_cached": 0, "training_scan": scan_ar,
+                       "serving_continuous_cached": cont_serve["cached"][1],
+                       "serving_continuous_scan": cont_serve["scan"][1],
+                       "training_mujoco_cached": 0, "training_mujoco_scan": 0}, 2)
     fwd_kernel = {
         "name": "attention_fwd",
         "route": "cuda",
@@ -1287,12 +1874,8 @@ def main() -> int:
         "route": "cuda",
         "source": "mat_dcml_tpu_torch/csrc/attention_bwd.cu",
         "replaces": "mat_dcml_tpu/ops/pallas_attention.py:153",
-        "launches": train_bwd + scan_bwd + mj_train["cached"][1] + mj_train["scan"][1],
-        "launches_by_path": {"serving_cached": 0, "serving_scan": 0,
-                             "training_cached": train_bwd, "training_scan": scan_bwd,
-                             "serving_continuous_cached": 0, "serving_continuous_scan": 0,
-                             "training_mujoco_cached": mj_train["cached"][1],
-                             "training_mujoco_scan": mj_train["scan"][1]},
+        "launches": sum(bwd_paths.values()),
+        "launches_by_path": bwd_paths,
         "max_abs_err": max(e for (_, dt), e in bwd_errs.items() if dt == "float32"),
         "ms": enc["ms"], "plain_ms": enc["plain_ms"], "bound_ms": enc["bound_ms"],
         "bound_by": enc["bound_by"], "library_ms": enc["library_ms"],
@@ -1306,12 +1889,8 @@ def main() -> int:
         "route": "cuda",
         "source": "mat_dcml_tpu_torch/csrc/ar_decode.cu",
         "replaces": "mat_dcml_tpu/ops/pallas_decode.py:595",
-        "launches": serve["scan"][1] + scan_ar,
-        "launches_by_path": {"serving_cached": serve["cached"][1], "serving_scan": serve["scan"][1],
-                             "training_cached": 0, "training_scan": scan_ar,
-                             "serving_continuous_cached": cont_serve["cached"][1],
-                             "serving_continuous_scan": cont_serve["scan"][1],
-                             "training_mujoco_cached": 0, "training_mujoco_scan": 0},
+        "launches": sum(ar_paths.values()),
+        "launches_by_path": ar_paths,
         "max_abs_err": ar_err,
         "ms": at8["ms"], "plain_ms": at8["plain_ms"], "bound_ms": at8["bound_ms"],
         "bound_by": at8["bound_by"], "library_ms": None,
@@ -1320,12 +1899,12 @@ def main() -> int:
         "cached_decode_ms": at8["cached_decode_ms"],
         "shapes": {f"B={b}": v for b, v in ar_shapes.items()},
     }
-    step_paths = {"serving_cached": 0, "serving_scan": 0, "training_cached": 0,
-                  "training_scan": 0,
-                  "serving_continuous_cached": cont_serve["cached"][2],
-                  "serving_continuous_scan": cont_serve["scan"][2],
-                  "training_mujoco_cached": mj_train["cached"][2],
-                  "training_mujoco_scan": mj_train["scan"][2]}
+    step_paths = with16({"serving_cached": 0, "serving_scan": 0, "training_cached": 0,
+                         "training_scan": 0,
+                         "serving_continuous_cached": cont_serve["cached"][2],
+                         "serving_continuous_scan": cont_serve["scan"][2],
+                         "training_mujoco_cached": mj_train["cached"][2],
+                         "training_mujoco_scan": mj_train["scan"][2]}, 3)
     st8 = step_shapes[8]
     step_kernel = {
         "name": "decode_step",
@@ -1360,6 +1939,22 @@ def main() -> int:
         "verdicts": probe_verdicts,
         "rows": probe_rows,
     }
+    bf16_legs = {
+        "attention_fwd": {"max_abs_err": bf16_err, "shapes": attn16},
+        "attention_bwd": {"max_abs_err": max(e for (_, dt), e in bwd_errs.items()
+                                             if dt == "bfloat16"), "shapes": attn16_bwd},
+        "ar_decode": {"max_abs_err": ar16_err, "max_abs_err_of": "log-prob",
+                      "tol": BF16_AR_TOL, "near_tie_rows": ar16_flips,
+                      "planted_fault": ar16_fault, "launches": sum(ar_paths[k] for k in paths16),
+                      "shapes": {f"B={b}": v for b, v in ar16_shapes.items()}},
+        "decode_step": {"max_abs_err": st16_err, "max_abs_err_of": "logits and caches",
+                        "tol": BF16_STEP_TOL, "moved_share": st16_share,
+                        "planted_fault_moved_share": st16_fault,
+                        "launches": sum(step_paths[k] for k in paths16),
+                        "shapes": {f"B={b}": v for b, v in st16_shapes.items()}},
+        "launches_by_path": paths16,
+    }
+    say(json.dumps({"bf16_legs": bf16_legs}))
     say(f"[done] {time.perf_counter() - t_start:.1f}s wall")
     say(card)   # as nvidia-smi gives it: name, power limit
     say(json.dumps({"kernels": [fwd_kernel, bwd_kernel, ar_kernel, step_kernel, probe_kernel]}))

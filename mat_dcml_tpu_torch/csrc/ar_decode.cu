@@ -16,7 +16,11 @@
 //            last logit, std = the last std entry, action = mean + std * z
 //
 // Exact-erf GELU (erff), LN eps 1e-6, attention scale 1 / sqrtf(Dh) rounded
-// as the attention kernel and the plain path round it.  f32 throughout.
+// as the attention kernel and the plain path round it.  Two legs, as the TPU
+// kernel has (it computes in the dtype of the caches it is given): an f32
+// trunk, and a bf16 trunk (bf16 weights, obs_rep and caches, f32 sums,
+// rounded to bf16 where the TPU kernel rounds; decode_common.cuh).  The
+// head, the noise, avail, the sampling and the outputs are f32 in both.
 //
 // What bounds it.  A row needs about 2 A (10 n_block D^2 + D^2) flops of
 // matrix-vector products plus 8 n_block D A (A + 1) / 2 of attention (22.7
@@ -49,7 +53,8 @@
 //    R = 4, the weights read from device memory, every matrix split, 18
 //    cluster barriers a position at 2 blocks.
 //
-// The K/V caches (4 n_block A D f32 a row: 207 KB at the recipe's width)
+// The K/V caches (4 n_block A D of the trunk type a row: 207 KB in f32 at
+// the recipe's width, 103 KB in bf16)
 // live in the workspace in device memory on both paths; a group of lanes
 // takes a key's score and a thread a run of values, so the loads of an
 // attention pass are in flight at once.  A prologue, parallel over positions, computes what
@@ -63,8 +68,13 @@
 // wrote in the prologue, and a cache slot of position j is read (at
 // positions > j) only after its owner CTA wrote it at position j.
 //
+// In bf16 the trunk's weights take half the room, so at the recipe's width
+// every optional matrix is local at 8 rows a cluster too (8 cluster
+// barriers a position at both row counts).
+//
 // Limits (the wrapper checks them): D <= kMaxD, A <= kMaxA, heads <=
-// kMaxHeads, action_dim <= kMaxAdim, D a multiple of the heads.  The launcher
+// kMaxHeads, action_dim <= kMaxAdim, D a multiple of the heads, and even in
+// bf16 (rep rows are fetched in 4-byte words).  The launcher
 // returns the launch's cudaError_t; it neither allocates nor synchronises.
 
 #include "decode_common.cuh"
@@ -81,13 +91,13 @@ constexpr float kMaskValue = -1e10f;   // ops/distributions.py MASK_VALUE
 constexpr float kHalfLog2Pi = 0.91893853320467274f;
 
 struct Args {
-  const float* obs_rep;  // (B, A, D)
+  const void* obs_rep;   // (B, A, D) trunk type
   const float* gumbel;   // (B, A, adim)
   const float* normal;   // (B, n_rows, adim)
   const float* avail;    // (B, A, adim) or null
-  const float* wts;
-  float* q2ws;           // (B, nb, A, D) cross-attention queries
-  float* cache;          // (B, nb, 4, A, D) K/V caches
+  const char* wts;
+  float* q2ws;           // (B, nb, A, D) cross-attention queries (values of the trunk type)
+  void* cache;           // (B, nb, 4, A, D) K/V caches, trunk type
   float* act;            // (B, A)
   float* logp;           // (B, A)
   int B, A, D, H, nb, adim, nd, n_rows;
@@ -95,61 +105,69 @@ struct Args {
 
 // kD, kH, kLocal: n_embd, heads and the local matrices as compile-time
 // constants (0, or -1 for the mask: read at run time).
-template <int R, bool kOnChip, int kD, int kH, int kLocal>
+template <class T, int R, bool kOnChip, int kD, int kH, int kLocal>
 __global__ void __launch_bounds__(kThreads, 1) ar_decode_kernel(const Args a, const Smem L) {
-  using K = Cfg<R, kOnChip, true, kD, kH, kLocal>;
-  extern __shared__ float sm[];
+  using K = Cfg<T, R, kOnChip, true, kD, kH, kLocal>;
+  extern __shared__ __align__(16) char sm[];
   const int D = kD ? kD : a.D, H = kH ? kH : a.H, A = a.A, adim = a.adim;
-  const Weights WL = weight_layout(true, 0, D, a.nb, adim);   // embedded through embed_act
+  // embedded through embed_act
+  const Weights WL = weight_layout(true, 0, D, a.nb, adim, sizeof(T));
   Ctx c = make_ctx(sm, L, WL, a.wts, a.B, R, D, H, a.nb, adim, A);
   c.dcache = a.cache;
   c.cs = (long long)A * D;
   c.ps = D;
   c.bs = (long long)a.nb * 4 * A * D;
+  const T* obs_rep = static_cast<const T*>(a.obs_rep);
   const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
   const int ncm = cdiv(D, kCluster), c0 = c.rank * ncm, nc = min(ncm, D - c0);
   const int ls = 2 * adim + 1;   // a row's sampling inputs: gumbel, avail, tail noise
   int* idx_s = reinterpret_cast<int*>(sm + L.idx);
-  const float sd = a.wts[WL.std_row + adim - 1];
+  const float sd = wfield<float>(c, WL.std_row)[adim - 1];
+  T* emb = sbuf<T>(c, L.emb);
 
   // ---- prologue: weights on chip; LN0(gelu(.)) of the start row and of
   // every action's row; every block's cross query at every position
   if (kOnChip) copy_image(c, WL.total);
   cp_async_commit();   // waited for at position 0
-  for (int t = tid; t < L.scores - L.x; t += kThreads) sm[L.x + t] = 0.f;
+  for (int t = tid; t < (L.scores - L.x) / 4; t += kThreads) sbuf<float>(c, L.x)[t] = 0.f;
   __syncthreads();
   for (int e = warp; e <= adim; e += kWarps) {
-    float* row = sm + L.emb + e * D;
-    const float* src = a.wts + (e == 0 ? WL.embed_start : WL.embed_act + (size_t)(e - 1) * D);
-    for (int d = lane; d < D; d += kWarp) row[d] = gelu(src[d]);
+    T* row = emb + e * D;
+    const T* src = e == 0 ? wfield<T>(c, WL.embed_start)
+                          : wfield<T>(c, WL.embed_act) + (size_t)(e - 1) * D;
+    for (int d = lane; d < D; d += kWarp) row[d] = from_f<T>(gelu(to_f(src[d])));
     __syncwarp();
-    ln_row(row, a.wts + WL.ln0, a.wts + WL.ln0 + D, D, row);
+    ln_row(row, wfield<float>(c, WL.ln0), wfield<float>(c, WL.ln0) + D, D, row);
   }
   for (int b = 0; b < a.nb; ++b) {
-    const float* w2 = a.wts + WL.qkvp2_w + (size_t)b * D * 4 * D + c0;
-    const float* b2 = a.wts + WL.qkvp2_b + (size_t)b * 4 * D + c0;
+    const T* w2 = wfield<T>(c, WL.qkvp2_w) + (size_t)b * D * 4 * D + c0;
+    const float* b2 = wfield<float>(c, WL.qkvp2_b) + (size_t)b * 4 * D + c0;
     for (int t = tid; t < c.nrows * A * nc; t += kThreads) {
       const int j = t % nc, rp = t / nc;       // rp = r A + position
       const int row = c.row0 + rp / A, pos = rp % A;
-      const float* rep = a.obs_rep + ((size_t)row * A + pos) * D;
+      const T* rep = obs_rep + ((size_t)row * A + pos) * D;
       float acc = 0.f;
-      for (int k = 0; k < D; ++k) acc = fmaf(rep[k], w2[(size_t)k * 4 * D + j], acc);
-      a.q2ws[(((size_t)row * a.nb + b) * A + pos) * D + c0 + j] = acc + b2[j];
+      for (int k = 0; k < D; ++k) acc = fmaf(to_f(rep[k]), to_f(w2[(size_t)k * 4 * D + j]), acc);
+      a.q2ws[(((size_t)row * a.nb + b) * A + pos) * D + c0 + j] =
+          rnd<T>(rnd<T>(acc) + rnd<T>(b2[j]));
     }
   }
   __syncthreads();
   cluster_sync();   // every CTA of the cluster runs before any writes into it
 
   // a position's rep rows, this CTA's query columns and the sampling inputs,
-  // into the buffers of its parity, by cp.async a position ahead
+  // into the buffers of its parity, by cp.async a position ahead (a rep row
+  // in 4-byte words)
+  const int words = D * (int)sizeof(T) / 4;
   auto prefetch = [&](int pos) {
     const int p = pos & 1;
-    float* rep = sm + (p ? L.rep2 : L.rep);
-    float* q2l = sm + L.q2l + p * a.nb * R * ncm;
-    float* smp = sm + L.smp + p * R * ls;
-    for (int t = tid; t < c.nrows * D; t += kThreads) {
-      const int r = t / D, d = t % D;
-      cp_async4(rep + t, a.obs_rep + ((size_t)(c.row0 + r) * A + pos) * D + d);
+    char* rep = sm + (p ? L.rep2 : L.rep);
+    float* q2l = sbuf<float>(c, L.q2l) + p * a.nb * R * ncm;
+    float* smp = sbuf<float>(c, L.smp) + p * R * ls;
+    for (int t = tid; t < c.nrows * words; t += kThreads) {
+      const int r = t / words, w = t % words;
+      cp_async4(rep + 4 * t, reinterpret_cast<const char*>(
+                                 obs_rep + ((size_t)(c.row0 + r) * A + pos) * D) + 4 * w);
     }
     for (int t = tid; t < a.nb * c.nrows * nc; t += kThreads) {
       const int j = t % nc, br = t / nc, b = br / c.nrows, r = br % c.nrows;
@@ -175,12 +193,13 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_kernel(const Args a, co
     if (i + 1 < A) prefetch(i + 1);
     const int p = i & 1;
     c.L.rep = p ? L.rep2 : L.rep;
-    c.L.q2l = L.q2l + p * a.nb * R * ncm;
-    const float* smp = sm + L.smp + p * R * ls;
+    c.L.q2l = L.q2l + p * a.nb * R * ncm * 4;
+    const float* smp = sbuf<float>(c, L.smp) + p * R * ls;
     // ---- the previous action's row (the start row at i = 0), embedded
     if (warp < c.nrows) {
-      const float* e = sm + L.emb + (i == 0 ? 0 : idx_s[warp] + 1) * D;
-      for (int d = lane; d < D; d += kWarp) sm[L.x + warp * D + d] = e[d];
+      const T* e = emb + (i == 0 ? 0 : idx_s[warp] + 1) * D;
+      T* x = sbuf<T>(c, L.x) + warp * D;
+      for (int d = lane; d < D; d += kWarp) x[d] = e[d];
     }
     __syncthreads();
     DEC_MARK(kMarkPosition);
@@ -188,14 +207,15 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_kernel(const Args a, co
     decoder_position<K>(c, i);
 
     // ---- the logits, in every CTA
-    stage<K>(c, kH2, sm + L.w_h2, a.wts + WL.head_w2, adim, sm + L.hh, D, adim, c.P.head_b2,
-             false, nullptr, L.logits);
+    const float* none = nullptr;
+    stage<K>(c, kH2, sbuf<float>(c, L.w_h2), wfield<float>(c, WL.head_w2), adim,
+             sbuf<float>(c, L.hh), D, adim, c.P.head_b2, false, none, L.logits);
 
     // ---- sampling, a warp a row: Gumbel-argmax and its log-prob, or the
     // Gaussian tail
     if (warp < c.nrows) {
       const int row = c.row0 + warp;
-      const float* lg = sm + L.logits + warp * adim;
+      const float* lg = sbuf<float>(c, L.logits) + warp * adim;
       const float* gm = smp + warp * ls;
       const float* av = a.avail != nullptr ? gm + adim : nullptr;
       float best_v = -INFINITY, m = -INFINITY;
@@ -245,54 +265,60 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_kernel(const Args a, co
   }
 }
 
-template <int R, bool kOnChip, int kD = 0, int kH = 0, int kLocal = -1>
+template <class T, int R, bool kOnChip, int kD = 0, int kH = 0, int kLocal = -1>
 cudaError_t launch(const Args& a, const Smem& L, cudaStream_t stream) {
   static int smem_set = 0;
-  const int bytes = 4 * L.total;
-  const auto kernel = ar_decode_kernel<R, kOnChip, kD, kH, kLocal>;
-  const cudaError_t e = allow_smem(kernel, bytes, &smem_set);
+  const auto kernel = ar_decode_kernel<T, R, kOnChip, kD, kH, kLocal>;
+  const cudaError_t e = allow_smem(kernel, L.total, &smem_set);
   if (e != cudaSuccess) return e;
-  return launch_clusters(kernel, cdiv(a.B, R), bytes, stream, a, L);
+  return launch_clusters(kernel, cdiv(a.B, R), L.total, stream, a, L);
 }
 
-bool valid(int B, int A, int D, int H, int nb, int adim, int nd, int n_rows) {
+// The plan of the launch (decode_layout.cuh) and the kernel it takes.
+template <class T>
+cudaError_t run(const Args& a, cudaStream_t s) {
+  constexpr int es = sizeof(T);
+  const Smem L = plan_layout(true, a.B, a.D, a.H, a.nb, a.adim, a.A, 0, es);
+  if (!on_chip(L)) return launch<T, device_rows(true), false>(a, L, s);
+  const bool recipe = recipe_kernel(true, L, a.B, a.D, a.H);
+  if (chip_rows(a.B) == 2)
+    return recipe ? launch<T, 2, true, 64, 2, recipe_local(true, 2, es)>(a, L, s)
+                  : launch<T, 2, true>(a, L, s);
+  return recipe ? launch<T, 8, true, 64, 2, recipe_local(true, 8, es)>(a, L, s)
+                : launch<T, 8, true>(a, L, s);
+}
+
+bool valid(int B, int A, int D, int H, int nb, int adim, int nd, int n_rows, int dtype) {
   return !(B < 1 || A < 1 || A > kMaxA || D < 1 || D > kMaxD || H < 1 || H > kMaxHeads ||
            D % H != 0 || nb < 1 || adim < 1 || adim > kMaxAdim || nd < 0 || nd > A ||
-           n_rows < (A - nd > 1 ? A - nd : 1));
+           n_rows < (A - nd > 1 ? A - nd : 1) || dtype < 0 || dtype > 1 ||
+           (dtype == 1 && D % 2 != 0));
 }
 
 }  // namespace
 
-// obs_rep (B, A, D), gumbel (B, A, adim), normal (B, n_rows, adim), avail
-// (B, A, adim) or null (all available), weights: the flat ARDecodeWeights
-// (on the on-chip path followed by their image, ops/decode_plan.py::
-// with_image), workspace: the (B, nb, A, D) cross queries, then the (B, nb,
-// 4, A, D) K/V caches; act and logp (B, A); all f32 and contiguous.
+// obs_rep (B, A, D) of the trunk type, gumbel (B, A, adim), normal (B,
+// n_rows, adim), avail (B, A, adim) or null (all available), weights: the
+// flat ARDecodeWeights (on the on-chip path followed by their image,
+// ops/decode_plan.py::with_image), workspace: the (B, nb, A, D) f32 cross
+// queries, then the (B, nb, 4, A, D) K/V caches of the trunk type; act and
+// logp (B, A) f32; all contiguous.  dtype: the trunk, 0 f32, 1 bf16.
 extern "C" cudaError_t mat_ar_decode(const void* obs_rep, const void* gumbel, const void* normal,
                                      const void* avail, const void* weights, void* workspace,
                                      void* act, void* logp, int B, int A, int D, int H, int nb,
-                                     int adim, int nd, int n_rows, void* stream) {
-  if (!valid(B, A, D, H, nb, adim, nd, n_rows)) return cudaErrorInvalidValue;
-  const Smem L = plan_layout(true, B, D, H, nb, adim, A, 0);
+                                     int adim, int nd, int n_rows, int dtype, void* stream) {
+  if (!valid(B, A, D, H, nb, adim, nd, n_rows, dtype)) return cudaErrorInvalidValue;
   float* ws = static_cast<float*>(workspace);
-  const Args a{static_cast<const float*>(obs_rep), static_cast<const float*>(gumbel),
-               static_cast<const float*>(normal), static_cast<const float*>(avail),
-               static_cast<const float*>(weights), ws, ws + (size_t)B * nb * A * D,
-               static_cast<float*>(act), static_cast<float*>(logp), B, A, D, H, nb, adim, nd,
-               n_rows};
+  const Args a{obs_rep, static_cast<const float*>(gumbel), static_cast<const float*>(normal),
+               static_cast<const float*>(avail), static_cast<const char*>(weights), ws,
+               ws + (size_t)B * nb * A * D, static_cast<float*>(act), static_cast<float*>(logp),
+               B, A, D, H, nb, adim, nd, n_rows};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!on_chip(L)) return launch<device_rows(true), false>(a, L, s);
-  const bool recipe = recipe_kernel(true, L, B, D, H);
-  if (chip_rows(B) == 2)
-    return recipe ? launch<2, true, 64, 2, kWholeRecipe2>(a, L, s) : launch<2, true>(a, L, s);
-  return recipe ? launch<8, true, 64, 2, kWholeRecipe8>(a, L, s) : launch<8, true>(a, L, s);
+  return dtype == 1 ? run<bf16>(a, s) : run<float>(a, s);
 }
 
-// The number of f32 values in the flat weight buffer, and the limits the
-// wrapper checks against, so the two sides cannot drift apart.
-extern "C" long long mat_ar_decode_weight_count(int D, int nb, int adim) {
-  return weight_layout(true, 0, D, nb, adim).total;
-}
+// The limits the wrapper checks against, so the two sides cannot drift
+// apart (the flat weights' bytes: decode_layout.cuh mat_decode_weight_bytes).
 extern "C" int mat_ar_decode_max_d() { return kMaxD; }
 extern "C" int mat_ar_decode_max_a() { return kMaxA; }
 extern "C" int mat_ar_decode_max_heads() { return kMaxHeads; }

@@ -51,6 +51,19 @@
 // weight read.  A slice is stored transposed, column j at j * ld + k, with
 // ld = ks (mod 32), so the 32 lanes of a warp read 32 distinct banks.
 //
+// The trunk type T (Cfg::T): f32, or bf16 as the TPU kernel runs a bf16
+// trunk (pallas_decode.py _mm, _gelu, _layer_norm).  The trunk's weights,
+// the K/V caches, rep and every buffer of the trunk that a stage writes
+// (and exchanges) hold T; a bf16 value widens to f32 exactly as it is
+// loaded, and every product, LayerNorm, GELU and attention computes in f32.
+// The result rounds to T where the TPU kernel rounds it: a product after
+// its f32 sum, again after its bias (itself rounded to T) is added, again
+// after the GELU and after the residual; a LayerNorm's output; an
+// attention's output (its scores, softmax and P.V stay f32).  The head,
+// its weights, the biases, the LayerNorm parameters and the sampling stay
+// f32.  For T = f32 every rounding is the identity, so the f32 kernels are
+// the all-f32 ones.
+//
 // The kernels are compiled for the recipe's widths (n_embd 64, 2 heads) with
 // those widths as constants, so loops unroll and divisions fold, and once
 // more for any width; the launcher picks by shape.
@@ -58,6 +71,7 @@
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -67,9 +81,36 @@ namespace dec {
 
 namespace cg = cooperative_groups;
 
+using bf16 = __nv_bfloat16;
+
 constexpr int kWarps = kThreads / kWarp;
 constexpr float kLnEps = 1e-6f;          // flax LayerNorm
 constexpr unsigned kFull = 0xffffffffu;
+
+// The trunk type's conversions: to_f widens (exact), from_f rounds to
+// nearest even (as jnp's astype and torch's .to do), rnd rounds through T.
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+template <class T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16(v); }
+template <class T> __device__ __forceinline__ float rnd(float v) { return to_f(from_f<T>(v)); }
+// a load from device memory that bypasses L1 (cached in L2 only), widened
+__device__ __forceinline__ float ldcg_f(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ float ldcg_f(const bf16* p) {
+  const unsigned short bits = __ldcg(reinterpret_cast<const unsigned short*>(p));
+  return __bfloat162float(__ushort_as_bfloat16(bits));
+}
+// four consecutive elements, 4-element aligned, widened
+__device__ __forceinline__ float4 ldcg4(const float* p) {
+  return __ldcg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 ldcg4(const bf16* p) {
+  const uint2 u = __ldcg(reinterpret_cast<const uint2*>(p));
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
 
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = kWarp / 2; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
@@ -85,11 +126,11 @@ __device__ __forceinline__ float gelu(float x) {
   return 0.5f * x * (1.f + erff(x * 0.70710678118654752f));
 }
 
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
 }
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
 }
@@ -130,38 +171,41 @@ __device__ __forceinline__ void cluster_sync() {
 
 // Every CTA's shared memory base in the cluster (index: rank).
 struct Peers {
-  float* base[kCluster];
+  char* base[kCluster];
 };
 
 // A CTA's view of its columns of a weight matrix: element (k, j), j counted
 // from the CTA's first column, at p[k * sk + j * sj].
+template <class TW>
 struct WView {
-  const float* p;
+  const TW* p;
   int sk, sj;
 };
 
 // This CTA's view of its columns of the (n_in, ldw-wide) matrix at `g` in
 // device memory, or of its slice (the whole matrix when parts is 1) at
 // `chip` in shared memory.
-template <bool kOnChip>
-__device__ inline WView view(const float* chip, const float* g, int ldw, int n_in, int n_out,
-                             int rank, int parts) {
+template <bool kOnChip, class TW>
+__device__ inline WView<TW> view(const TW* chip, const TW* g, int ldw, int n_in, int n_out,
+                                 int rank, int parts) {
   const int ncm = cdiv(n_out, parts);
-  if (kOnChip) return WView{chip, 1, slice_depth(n_in, ncm)};
-  return WView{g + rank * ncm, ldw, 1};
+  if (kOnChip) return WView<TW>{chip, 1, slice_depth(n_in, ncm, (int)sizeof(TW))};
+  return WView<TW>{g + rank * ncm, ldw, 1};
 }
 
 // out[r][c0 + j] = act(bias[c0 + j] + sum_k x[r][k] W[k][c0 + j]) (+ res[r][c0 + j])
 // for r < R and this CTA's columns j (all n_out of them when parts is 1),
-// written at float offset dst (row stride ldd) of the first nq shared
-// memories in `peers`, or, with gout set, to gout (row stride ldd) in device
-// memory for r < nvalid.  Called by the whole CTA; the caller closes the
-// stage.  Everything is passed by value, so that the caller's context stays
-// in registers.
-template <int R>
-__device__ void product(const float* x, int ldx, int n_in, WView w, int n_out, int rank,
+// rounded to TO where the TPU kernel rounds (after the sum, the bias, the
+// GELU and the residual; the bias itself rounded to TO), written at byte
+// offset dst (row stride ldd elements) of the first nq shared memories in
+// `peers`, or, with gout set, to gout (row stride ldd) in device memory for
+// r < nvalid.  Called by the whole CTA; the caller closes the stage.
+// Everything is passed by value, so that the caller's context stays in
+// registers.
+template <int R, class TX, class TW, class TO>
+__device__ void product(const TX* x, int ldx, int n_in, WView<TW> w, int n_out, int rank,
                         int parts, const float* __restrict__ bias, bool gelu_act,
-                        const float* res, int ldres, Peers peers, int nq, int dst,
+                        const TO* res, int ldres, Peers peers, int nq, int dst,
                         int ldd, float* gout = nullptr, int nvalid = 0) {
   const int ncm = cdiv(n_out, parts);
   const int c0 = parts > 1 ? rank * ncm : 0;
@@ -173,17 +217,17 @@ __device__ void product(const float* x, int ldx, int n_in, WView w, int n_out, i
   for (int jb = 0; jb < nc; jb += per_pass) {
     const int j = jb + threadIdx.x / ks;
     const bool live = j < nc;
-    const float bj = live ? bias[c0 + j] : 0.f;
+    const float bj = live ? rnd<TO>(bias[c0 + j]) : 0.f;
     float acc[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) acc[r] = 0.f;
     if (live) {
-      const float* wj = w.p + (size_t)j * w.sj;
+      const TW* wj = w.p + (size_t)j * w.sj;
 #pragma unroll 4
       for (int k = s; k < n_in; k += ks) {
-        const float wk = wj[(size_t)k * w.sk];
+        const float wk = to_f(wj[(size_t)k * w.sk]);
 #pragma unroll
-        for (int r = 0; r < R; ++r) acc[r] = fmaf(x[r * ldx + k], wk, acc[r]);
+        for (int r = 0; r < R; ++r) acc[r] = fmaf(to_f(x[r * ldx + k]), wk, acc[r]);
       }
     }
     for (int o = ks / 2; o > 0; o >>= 1) {
@@ -195,15 +239,15 @@ __device__ void product(const float* x, int ldx, int n_in, WView w, int n_out, i
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         if ((r & (ks - 1)) != s) continue;   // lane s of the column takes rows r = s (mod ks)
-        float v = acc[r] + bj;
-        if (gelu_act) v = gelu(v);
-        if (res != nullptr) v += res[r * ldres + c];
+        float v = rnd<TO>(rnd<TO>(acc[r]) + bj);
+        if (gelu_act) v = rnd<TO>(gelu(v));
+        if (res != nullptr) v = rnd<TO>(v + to_f(res[r * ldres + c]));
         if (gout != nullptr) {
           if (r < nvalid) gout[(size_t)r * ldd + c] = v;
         } else {
 #pragma unroll
           for (int q = 0; q < kCluster; ++q)
-            if (q < nq) peers.base[q][dst + r * ldd + c] = v;
+            if (q < nq) reinterpret_cast<TO*>(peers.base[q] + dst)[r * ldd + c] = from_f<TO>(v);
         }
       }
     }
@@ -211,16 +255,18 @@ __device__ void product(const float* x, int ldx, int n_in, WView w, int n_out, i
   DEC_MARK(kMarkProduct);
 }
 
-// out = LN(in) * scale + bias over D values, by one warp (in may be out).
-// The sum and the sum of squares go through one shuffle tree together; the
-// variance E[x^2] - mean^2 differs from the two-pass one by rounding only
-// (the inputs are O(1) residual streams).
-__device__ inline void ln_row(const float* in, const float* __restrict__ scale,
-                              const float* __restrict__ bias, int D, float* out) {
+// out = LN(in) * scale + bias over D values, by one warp (in may be out),
+// in f32, the result rounded to TO.  The sum and the sum of squares go
+// through one shuffle tree together; the variance E[x^2] - mean^2 differs
+// from the two-pass one by rounding only (the inputs are O(1) residual
+// streams).
+template <class TI, class TO>
+__device__ inline void ln_row(const TI* in, const float* __restrict__ scale,
+                              const float* __restrict__ bias, int D, TO* out) {
   const int lane = threadIdx.x % kWarp;
   float s = 0.f, q = 0.f;
   for (int d = lane; d < D; d += kWarp) {
-    const float x = in[d];
+    const float x = to_f(in[d]);
     s += x;
     q = fmaf(x, x, q);
   }
@@ -230,22 +276,23 @@ __device__ inline void ln_row(const float* in, const float* __restrict__ scale,
   }
   const float mu = s / D;
   const float rstd = 1.f / sqrtf(fmaxf(q / D - mu * mu, 0.f) + kLnEps);
-  for (int d = lane; d < D; d += kWarp) out[d] = (in[d] - mu) * rstd * scale[d] + bias[d];
+  for (int d = lane; d < D; d += kWarp)
+    out[d] = from_f<TO>((to_f(in[d]) - mu) * rstd * scale[d] + bias[d]);
 }
 
 // LN of each of the R rows of `in` (row stride D) into `out`, warp r taking
 // row r, then a block barrier.
-template <int R>
-__device__ inline void ln_rows(const float* in, const float* __restrict__ scale,
-                               const float* __restrict__ bias, int D, float* out) {
+template <int R, class TI, class TO>
+__device__ inline void ln_rows(const TI* in, const float* __restrict__ scale,
+                               const float* __restrict__ bias, int D, TO* out) {
   const int warp = threadIdx.x / kWarp;
   if (warp < R) ln_row(in + warp * D, scale, bias, D, out + warp * D);
   __syncthreads();
   DEC_MARK(kMarkLn);
 }
 
-// The biases and LayerNorm parameters, in shared memory on the on-chip path
-// (param_floats order), else in device memory.
+// The biases and LayerNorm parameters (f32), in shared memory on the on-chip
+// path (param_floats order), else in device memory.
 struct Prm {
   const float *qkvp1_b, *qkvp2_b, *mlp_b1, *mlp_b2, *lns, *head_b1, *head_ln, *head_b2, *embed_b,
       *ln0;
@@ -253,28 +300,40 @@ struct Prm {
 
 // What one CTA of the body needs.
 struct Ctx {
-  float* sm;             // this CTA's dynamic shared memory
+  char* sm;              // this CTA's dynamic shared memory
   Peers peers;           // every CTA's
   Smem L;
   Weights W;
   Prm P;
-  const float* wts;      // the flat weights in device memory
+  const char* wts;       // the flat weights in device memory
   int rank, nrows, D, H, nb, n_pos;
   float scale;
-  // the caches in device memory: block b's cache c (0: self K, 1: self V, 2:
-  // cross K, 3: cross V) of batch row r, position j at
-  // dcache + r * bs + (4 b + c) * cs + j * ps
-  float* dcache;
+  // the caches in device memory, elements of the trunk type: block b's
+  // cache c (0: self K, 1: self V, 2: cross K, 3: cross V) of batch row r,
+  // position j at dcache + r * bs + (4 b + c) * cs + j * ps
+  void* dcache;
   long long cs, ps, bs;
   int row0;              // the cluster's first batch row
 };
 
-// What a kernel instantiation fixes at compile time: rows a cluster, the
-// path, the kernel, and n_embd, heads and the local matrices where the
-// launcher picked the recipe's specialisation (0, or -1 for the mask: read
-// from the context at run time).
-template <int R_, bool kOnChip_, bool kWhole_, int kD_, int kH_, int kLocal_>
+// Typed views: a shared-memory buffer at byte offset `off`, a field of the
+// flat weights at byte offset `off`.
+template <class T>
+__device__ __forceinline__ T* sbuf(const Ctx& c, int off) {
+  return reinterpret_cast<T*>(c.sm + off);
+}
+template <class T>
+__device__ __forceinline__ const T* wfield(const Ctx& c, long long off) {
+  return reinterpret_cast<const T*>(c.wts + off);
+}
+
+// What a kernel instantiation fixes at compile time: the trunk type, rows a
+// cluster, the path, the kernel, and n_embd, heads and the local matrices
+// where the launcher picked the recipe's specialisation (0, or -1 for the
+// mask: read from the context at run time).
+template <class T_, int R_, bool kOnChip_, bool kWhole_, int kD_, int kH_, int kLocal_>
 struct Cfg {
+  using T = T_;
   static constexpr int R = R_;
   static constexpr bool kOnChip = kOnChip_, kWhole = kWhole_;
   __device__ static int D(const Ctx& c) { return kD_ ? kD_ : c.D; }
@@ -284,19 +343,20 @@ struct Cfg {
 };
 
 // A stage's product: split over the cluster (ends at a cluster barrier) or
-// local, all columns in this CTA (ends at a block barrier).
-template <class K>
-__device__ inline void stage(const Ctx& c, int mat, const float* chip, const float* g, int ldw,
-                             const float* x, int n_in, int n_out, const float* bias, bool gelu_act,
-                             const float* res, int dst) {
+// local, all columns in this CTA (ends at a block barrier).  Weights TW
+// (the trunk's or the head's f32), output TO at byte offset dst.
+template <class K, class TW, class TO, class TX>
+__device__ inline void stage(const Ctx& c, int mat, const TW* chip, const TW* g, int ldw,
+                             const TX* x, int n_in, int n_out, const float* bias, bool gelu_act,
+                             const TO* res, int dst) {
   constexpr int R = K::R;
   constexpr bool kOnChip = K::kOnChip;
   const int parts = kOnChip ? parts_of(K::local(c), mat) : kCluster;
   const bool local = parts == 1;
   Peers to = c.peers;
   if (local) to.base[0] = c.sm;
-  product<R>(x, n_in, n_in, view<kOnChip>(chip, g, ldw, n_in, n_out, c.rank, parts), n_out, c.rank,
-             parts, bias, gelu_act, res, n_out, to, local ? 1 : kCluster, dst, n_out);
+  product<R>(x, n_in, n_in, view<kOnChip>(chip, g, ldw, n_in, n_out, c.rank, parts), n_out,
+             c.rank, parts, bias, gelu_act, res, n_out, to, local ? 1 : kCluster, dst, n_out);
   if (local) {
     __syncthreads();
     DEC_MARK(kMarkBlockBar);
@@ -309,8 +369,8 @@ __device__ inline void stage(const Ctx& c, int mat, const float* chip, const flo
 // CTA owns, by the whole CTA:
 //   out[c] = sum_j softmax_j(scale q . K[j]) V[j][c]   over j = 0 .. i
 // (the plain version's -1e9 weight after position i is exactly 0 in f32, so
-// those keys are skipped), each head's output written into every CTA's ya
-// (self-attention) or yb (cross-attention).
+// those keys are skipped), in f32, each head's output rounded to T and
+// written into every CTA's ya (self-attention) or yb (cross-attention).
 // `self` takes q, k, v from qkv, else q from q2 and k, v from kv2.  The
 // current key and value are stored into the caches at i and read from
 // shared memory.  A group of lanes takes one key's score, then a thread a
@@ -318,23 +378,26 @@ __device__ inline void stage(const Ctx& c, int mat, const float* chip, const flo
 // once.
 template <class K>
 __device__ void attend(const Ctx& c, int b, int i, bool self) {
+  using T = typename K::T;
   const int D = K::D(c), H = K::H(c), Dh = D / H;
   const int n = i + 1, P = K::pairs(c), tid = threadIdx.x;
-  float* S = c.sm + c.L.scores;
-  float* red = c.sm + c.L.red;
+  float* S = sbuf<float>(c, c.L.scores);
+  float* red = sbuf<float>(c, c.L.red);
+  T* dcache = static_cast<T*>(c.dcache);
   const long long kv = (long long)(4 * b + (self ? 0 : 2)) * c.cs;   // this K cache; V after it
-  const float* cur0 = c.sm + (self ? c.L.qkv + D : c.L.kv2);   // row r's current key at r * ldcur
+  // row r's current key at r * ldcur
+  const T* cur0 = self ? sbuf<T>(c, c.L.qkv) + D : sbuf<T>(c, c.L.kv2);
   const int ldcur = self ? 3 * D : 2 * D;
-  const float* q0 = c.sm + (self ? c.L.qkv : c.L.q2);
+  const T* q0 = sbuf<T>(c, self ? c.L.qkv : c.L.q2);
   const int ldq = self ? 3 * D : D;
   const bool vec = Dh % 4 == 0 && c.ps % 4 == 0 && c.cs % 4 == 0 && c.bs % 4 == 0 &&
-                   reinterpret_cast<size_t>(c.dcache) % 16 == 0;
+                   reinterpret_cast<size_t>(dcache) % (4 * sizeof(T)) == 0;
   // the current keys and values into the caches
   for (int t = tid; t < P * Dh; t += kThreads) {
     const int lp = t / Dh, d = t % Dh, pr = lp * kCluster + c.rank, r = pr / H, h = pr % H;
     if (r >= c.nrows) continue;
-    float* ki = c.dcache + (size_t)(c.row0 + r) * c.bs + kv + (size_t)i * c.ps + h * Dh;
-    const float* kc = cur0 + r * ldcur + h * Dh;
+    T* ki = dcache + (size_t)(c.row0 + r) * c.bs + kv + (size_t)i * c.ps + h * Dh;
+    const T* kc = cur0 + r * ldcur + h * Dh;
     ki[d] = kc[d];
     ki[c.cs + d] = kc[D + d];
   }
@@ -350,12 +413,12 @@ __device__ void attend(const Ctx& c, int b, int i, bool self) {
   if (one_item && tid < P * Dh * runs) {
     const int lp = tid / (Dh * runs), s = (tid / Dh) % runs, cc = tid % Dh;
     const int pr = lp * kCluster + c.rank, r = pr / H, h = pr % H;
-    const float* V = c.dcache + (size_t)(c.row0 + (r < c.nrows ? r : 0)) * c.bs + kv + c.cs +
-                     h * Dh + cc;
+    const T* V = dcache + (size_t)(c.row0 + (r < c.nrows ? r : 0)) * c.bs + kv + c.cs + h * Dh +
+                 cc;
     const int j0 = s * run, jend = r < c.nrows ? min(min(n, j0 + run), i) : j0;
 #pragma unroll
     for (int m = 0; m < kAhead; ++m)
-      ahead[m] = j0 + m < jend ? __ldcg(V + (size_t)(j0 + m) * c.ps) : 0.f;
+      ahead[m] = j0 + m < jend ? ldcg_f(V + (size_t)(j0 + m) * c.ps) : 0.f;
   }
   // scores: a group of kG lanes a key (neighbouring lanes on neighbouring
   // addresses of its row; 8, fewer where there are many keys), summed by
@@ -371,20 +434,21 @@ __device__ void attend(const Ctx& c, int b, int i, bool self) {
     const bool ok = t < P * n && r < c.nrows;
     float dot = 0.f;
     if (ok) {
-      const float* q = q0 + r * ldq + h * Dh;
-      const float* kj = j == i ? cur0 + r * ldcur + h * Dh
-                               : c.dcache + (size_t)(c.row0 + r) * c.bs + kv + (size_t)j * c.ps +
-                                     h * Dh;
+      const T* q = q0 + r * ldq + h * Dh;
+      const T* kj = j == i ? cur0 + r * ldcur + h * Dh
+                           : dcache + (size_t)(c.row0 + r) * c.bs + kv + (size_t)j * c.ps +
+                                 h * Dh;
       if (j < i && vec) {
         for (int d = 4 * gl; d < Dh; d += 4 * kG) {
-          const float4 k4 = __ldcg(reinterpret_cast<const float4*>(kj + d));
-          dot = fmaf(q[d], k4.x, dot);
-          dot = fmaf(q[d + 1], k4.y, dot);
-          dot = fmaf(q[d + 2], k4.z, dot);
-          dot = fmaf(q[d + 3], k4.w, dot);
+          const float4 k4 = ldcg4(kj + d);
+          dot = fmaf(to_f(q[d]), k4.x, dot);
+          dot = fmaf(to_f(q[d + 1]), k4.y, dot);
+          dot = fmaf(to_f(q[d + 2]), k4.z, dot);
+          dot = fmaf(to_f(q[d + 3]), k4.w, dot);
         }
       } else {
-        for (int d = gl; d < Dh; d += kG) dot = fmaf(q[d], j < i ? __ldcg(kj + d) : kj[d], dot);
+        for (int d = gl; d < Dh; d += kG)
+          dot = fmaf(to_f(q[d]), j < i ? ldcg_f(kj + d) : to_f(kj[d]), dot);
       }
     }
     for (int o = kG / 2; o > 0; o >>= 1) dot += __shfl_xor_sync(kFull, dot, o);
@@ -438,7 +502,7 @@ __device__ void attend(const Ctx& c, int b, int i, bool self) {
     float acc = 0.f;
     if (r < c.nrows) {
       const float* pj = S + lp * c.n_pos;
-      const float* V = c.dcache + (size_t)(c.row0 + r) * c.bs + kv + c.cs + h * Dh + cc;
+      const T* V = dcache + (size_t)(c.row0 + r) * c.bs + kv + c.cs + h * Dh + cc;
       const int j0 = s * run, j1 = min(n, j0 + run), jend = min(j1, i);
       int j = j0;
       if (one_item) {
@@ -448,8 +512,8 @@ __device__ void attend(const Ctx& c, int b, int i, bool self) {
         j = max(j0, min(jend, j0 + kAhead));
       }
 #pragma unroll 8
-      for (; j < jend; ++j) acc = fmaf(pj[j], __ldcg(V + (size_t)j * c.ps), acc);
-      if (j1 == n && j0 <= i) acc = fmaf(pj[i], cur0[r * ldcur + D + h * Dh + cc], acc);
+      for (; j < jend; ++j) acc = fmaf(pj[j], ldcg_f(V + (size_t)j * c.ps), acc);
+      if (j1 == n && j0 <= i) acc = fmaf(pj[i], to_f(cur0[r * ldcur + D + h * Dh + cc]), acc);
     }
     red[t] = acc;
   }
@@ -459,9 +523,10 @@ __device__ void attend(const Ctx& c, int b, int i, bool self) {
     if (r >= c.nrows) continue;
     float o = 0.f;
     for (int s = 0; s < runs; ++s) o += red[(lp * runs + s) * Dh + cc];
+    const T ov = from_f<T>(o);
 #pragma unroll
     for (int q = 0; q < kCluster; ++q)
-      c.peers.base[q][(self ? c.L.ya : c.L.yb) + r * D + h * Dh + cc] = o;
+      reinterpret_cast<T*>(c.peers.base[q] + (self ? c.L.ya : c.L.yb))[r * D + h * Dh + cc] = ov;
   }
   DEC_MARK(kMarkAttend);
 }
@@ -472,88 +537,94 @@ __device__ void attend(const Ctx& c, int b, int i, bool self) {
 // computes them from rep.  Returns with x ready in this CTA.
 template <class K>
 __device__ void decoder_block(const Ctx& c, int b, int i) {
+  using T = typename K::T;
   constexpr int R = K::R;
   constexpr bool kOnChip = K::kOnChip, kWhole = K::kWhole;
   const int D = K::D(c);
-  const float* wb = c.sm + c.L.w_blk + b * c.L.blk;
-  const float* w1 = c.wts + c.W.qkvp1_w + (size_t)b * D * 4 * D;
-  const float* w2 = c.wts + c.W.qkvp2_w + (size_t)b * D * 4 * D;
-  const float* m1 = c.wts + c.W.mlp_w1 + (size_t)b * D * D;
-  const float* m2 = c.wts + c.W.mlp_w2 + (size_t)b * D * D;
+  const char* wb = c.sm + c.L.w_blk + b * c.L.blk;
+  auto chip = [&](int off) { return reinterpret_cast<const T*>(wb + off); };
+  const T* w1 = wfield<T>(c, c.W.qkvp1_w) + (size_t)b * D * 4 * D;
+  const T* w2 = wfield<T>(c, c.W.qkvp2_w) + (size_t)b * D * 4 * D;
+  const T* m1 = wfield<T>(c, c.W.mlp_w1) + (size_t)b * D * D;
+  const T* m2 = wfield<T>(c, c.W.mlp_w2) + (size_t)b * D * D;
   const float* b1 = c.P.qkvp1_b + b * 4 * D;
   const float* b2 = c.P.qkvp2_b + b * 4 * D;
   const float* lns = c.P.lns + b * 6 * D;
-  float* sm = c.sm;
+  const T* none = nullptr;
 
   // 1: q, k, v of the self-attention
-  product<R>(sm + c.L.x, D, D, view<kOnChip>(wb + c.L.o_w1, w1, 4 * D, D, 3 * D, c.rank, kCluster),
-             3 * D, c.rank, kCluster, b1, false, nullptr, 0, c.peers, kCluster, c.L.qkv, 3 * D);
+  product<R>(sbuf<T>(c, c.L.x), D, D,
+             view<kOnChip>(chip(c.L.o_w1), w1, 4 * D, D, 3 * D, c.rank, kCluster), 3 * D, c.rank,
+             kCluster, b1, false, none, 0, c.peers, kCluster, c.L.qkv, 3 * D);
   cluster_sync();
   // 2: causal self-attention over the action stream
   attend<K>(c, b, i, true);
   cluster_sync();
   // 3: its projection and the residual
-  stage<K>(c, kP1, wb + c.L.o_p1, w1 + 3 * D, 4 * D, sm + c.L.ya, D, D, b1 + 3 * D,
-           false, sm + c.L.x, c.L.t1);
-  ln_rows<R>(sm + c.L.t1, lns, lns + D, D, sm + c.L.h1);
+  stage<K>(c, kP1, chip(c.L.o_p1), w1 + 3 * D, 4 * D, sbuf<T>(c, c.L.ya), D, D, b1 + 3 * D,
+           false, sbuf<T>(c, c.L.x), c.L.t1);
+  ln_rows<R>(sbuf<T>(c, c.L.t1), lns, lns + D, D, sbuf<T>(c, c.L.h1));
   // 4: cross-attention keys and values from h1, and its query
-  product<R>(sm + c.L.h1, D, D,
-             view<kOnChip>(wb + c.L.o_kv2, w2 + D, 4 * D, D, 2 * D, c.rank, kCluster), 2 * D,
-             c.rank, kCluster, b2 + D, false, nullptr, 0, c.peers, kCluster, c.L.kv2, 2 * D);
+  product<R>(sbuf<T>(c, c.L.h1), D, D,
+             view<kOnChip>(chip(c.L.o_kv2), w2 + D, 4 * D, D, 2 * D, c.rank, kCluster), 2 * D,
+             c.rank, kCluster, b2 + D, false, none, 0, c.peers, kCluster, c.L.kv2, 2 * D);
   if (kWhole) {
     const int ncm = cdiv(D, kCluster), c0 = c.rank * ncm, nc = min(ncm, D - c0);
-    const float* q2l = sm + c.L.q2l + b * R * ncm;
+    const float* q2l = sbuf<float>(c, c.L.q2l) + b * R * ncm;
     for (int t = threadIdx.x; t < R * nc; t += kThreads) {
       const int r = t / nc, j = t % nc;
-      const float v = q2l[r * ncm + j];
+      const T v = from_f<T>(q2l[r * ncm + j]);   // a value of T already: exact
 #pragma unroll
-      for (int q = 0; q < kCluster; ++q) c.peers.base[q][c.L.q2 + r * D + c0 + j] = v;
+      for (int q = 0; q < kCluster; ++q)
+        reinterpret_cast<T*>(c.peers.base[q] + c.L.q2)[r * D + c0 + j] = v;
     }
   } else {
-    product<R>(sm + c.L.rep, D, D,
-               view<kOnChip>(wb + c.L.o_q2, w2, 4 * D, D, D, c.rank, kCluster), D, c.rank,
-               kCluster, b2, false, nullptr, 0, c.peers, kCluster, c.L.q2, D);
+    product<R>(sbuf<T>(c, c.L.rep), D, D,
+               view<kOnChip>(chip(c.L.o_q2), w2, 4 * D, D, D, c.rank, kCluster), D, c.rank,
+               kCluster, b2, false, none, 0, c.peers, kCluster, c.L.q2, D);
   }
   cluster_sync();
   // 5: cross-attention, query from the encoder rep, K/V from h1
   attend<K>(c, b, i, false);
   cluster_sync();
   // 6: its projection and the rep residual
-  stage<K>(c, kP2, wb + c.L.o_p2, w2 + 3 * D, 4 * D, sm + c.L.yb, D, D, b2 + 3 * D,
-           false, sm + c.L.rep, c.L.t2);
-  ln_rows<R>(sm + c.L.t2, lns + 2 * D, lns + 3 * D, D, sm + c.L.h2);
+  stage<K>(c, kP2, chip(c.L.o_p2), w2 + 3 * D, 4 * D, sbuf<T>(c, c.L.yb), D, D, b2 + 3 * D,
+           false, sbuf<T>(c, c.L.rep), c.L.t2);
+  ln_rows<R>(sbuf<T>(c, c.L.t2), lns + 2 * D, lns + 3 * D, D, sbuf<T>(c, c.L.h2));
   // 7, 8: the MLP and the block's output
-  stage<K>(c, kM1, wb + c.L.o_m1, m1, D, sm + c.L.h2, D, D, c.P.mlp_b1 + b * D, true,
-           nullptr, c.L.u);
-  stage<K>(c, kM2, wb + c.L.o_m2, m2, D, sm + c.L.u, D, D, c.P.mlp_b2 + b * D, false,
-           sm + c.L.h2, c.L.t3);
-  ln_rows<R>(sm + c.L.t3, lns + 4 * D, lns + 5 * D, D, sm + c.L.x);
+  stage<K>(c, kM1, chip(c.L.o_m1), m1, D, sbuf<T>(c, c.L.h2), D, D, c.P.mlp_b1 + b * D, true,
+           none, c.L.u);
+  stage<K>(c, kM2, chip(c.L.o_m2), m2, D, sbuf<T>(c, c.L.u), D, D, c.P.mlp_b2 + b * D, false,
+           sbuf<T>(c, c.L.h2), c.L.t3);
+  ln_rows<R>(sbuf<T>(c, c.L.t3), lns + 4 * D, lns + 5 * D, D, sbuf<T>(c, c.L.x));
 }
 
 // The blocks and the head's first half at position i: from x to hh =
-// LN(gelu(x . H1 + b)) in every CTA.
+// LN(gelu(x . H1 + b)) in every CTA, the head in f32.
 template <class K>
 __device__ void decoder_position(const Ctx& c, int i) {
+  using T = typename K::T;
   const int D = K::D(c);
+  const float* none = nullptr;
   for (int b = 0; b < c.nb; ++b) decoder_block<K>(c, b, i);
-  stage<K>(c, kH1, c.sm + c.L.w_h1, c.wts + c.W.head_w1, D, c.sm + c.L.x, D, D,
-           c.P.head_b1, true, nullptr, c.L.hv);
-  ln_rows<K::R>(c.sm + c.L.hv, c.P.head_ln, c.P.head_ln + D, D, c.sm + c.L.hh);
+  stage<K>(c, kH1, sbuf<float>(c, c.L.w_h1), wfield<float>(c, c.W.head_w1), D,
+           sbuf<T>(c, c.L.x), D, D, c.P.head_b1, true, none, c.L.hv);
+  ln_rows<K::R>(sbuf<float>(c, c.L.hv), c.P.head_ln, c.P.head_ln + D, D, sbuf<float>(c, c.L.hh));
 }
 
 // On the on-chip path: copy this CTA's row of the weight image (the flat
-// weights' `count` floats, rounded up to whole 16-byte words, are followed
-// by one row a CTA: its weight parts and parameters as they lie in shared
-// memory, everything before x; decode_layout.cuh::weight_image) into shared
-// memory by 16-byte cp.async.  The caller commits and waits.
-__device__ inline void copy_image(const Ctx& c, long long count) {
-  const float* row = c.wts + 4 * ((count + 3) / 4) + (size_t)c.rank * c.L.x;
-  for (int t = threadIdx.x; t < c.L.x / 4; t += kThreads) cp_async16(c.sm + 4 * t, row + 4 * t);
+// weights' `bytes`, rounded up to whole 16-byte words, are followed by one
+// row a CTA: its weight parts and parameters as they lie in shared memory,
+// everything before x; decode_layout.cuh::weight_image) into shared memory
+// by 16-byte cp.async.  The caller commits and waits.
+__device__ inline void copy_image(const Ctx& c, long long bytes) {
+  const char* row = c.wts + 16 * ((bytes + 15) / 16) + (size_t)c.rank * c.L.x;
+  for (int t = threadIdx.x; t < c.L.x / 16; t += kThreads) cp_async16(c.sm + 16 * t, row + 16 * t);
 }
 
 // The CTA's context: shared memory, peers, rank, the cluster's rows and
 // where the parameters are.
-__device__ inline Ctx make_ctx(float* sm, const Smem& L, const Weights& W, const float* wts,
+__device__ inline Ctx make_ctx(char* sm, const Smem& L, const Weights& W, const char* wts,
                                int B, int R, int D, int H, int nb, int adim, int n_pos) {
   Ctx c;
   cg::cluster_group cl = cg::this_cluster();
@@ -575,7 +646,7 @@ __device__ inline Ctx make_ctx(float* sm, const Smem& L, const Weights& W, const
   c.dcache = nullptr;
   c.cs = c.ps = c.bs = 0;
   if (L.prm >= 0) {
-    const float* p = sm + L.prm;
+    const float* p = reinterpret_cast<const float*>(sm + L.prm);
     c.P.qkvp1_b = p;  p += nb * 4 * D;
     c.P.qkvp2_b = p;  p += nb * 4 * D;
     c.P.mlp_b1 = p;   p += nb * D;
@@ -587,8 +658,9 @@ __device__ inline Ctx make_ctx(float* sm, const Smem& L, const Weights& W, const
     c.P.embed_b = p;  p += D;
     c.P.ln0 = p;
   } else {
-    c.P = Prm{wts + W.qkvp1_b, wts + W.qkvp2_b, wts + W.mlp_b1, wts + W.mlp_b2, wts + W.lns,
-              wts + W.head_b1, wts + W.head_ln, wts + W.head_b2, wts + W.embed_b, wts + W.ln0};
+    const auto f = [&](long long off) { return reinterpret_cast<const float*>(wts + off); };
+    c.P = Prm{f(W.qkvp1_b), f(W.qkvp2_b), f(W.mlp_b1), f(W.mlp_b2), f(W.lns),
+              f(W.head_b1), f(W.head_ln), f(W.head_b2), f(W.embed_b), f(W.ln0)};
   }
   return c;
 }

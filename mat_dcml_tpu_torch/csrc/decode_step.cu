@@ -13,7 +13,10 @@
 //
 // Exact-erf GELU (erff), LN eps 1e-6, attention scale 1 / sqrtf(Dh) rounded
 // as the attention kernel and the plain path round it, keys after i skipped
-// (the plain version's -1e9 weight is exactly 0).  f32 throughout.
+// (the plain version's -1e9 weight is exactly 0).  Two legs, as the TPU
+// kernel has: an f32 trunk, and a bf16 trunk (bf16 x_in, rep, weights and
+// caches, f32 sums, rounded to bf16 where the TPU kernel rounds;
+// decode_common.cuh); the head and the logits are f32 in both.
 //
 // The 4 n_block K/V caches are updated in place: cache c of a row holds
 // position j at cache + c * cache_stride + j * pos_stride + row * batch_stride,
@@ -43,7 +46,9 @@
 // computed there without a cluster barrier; stage 4 of each block also
 // computes the cross-attention query from rep.  10 cluster barriers a
 // launch at that width (one to start, 4 a block, one for the head; the
-// logits go straight to device memory), 12 at R = 8, 19 off chip.  The
+// logits go straight to device memory), 12 at R = 8, 19 off chip.  In bf16
+// the trunk's matrices take half the room and the head's first layer is
+// local too: 9 cluster barriers at both row counts.  The
 // caches stay in the caller's workspace; the CTA that owns a (row, head)
 // pair writes its key and value at i and reads positions before i.
 //
@@ -56,7 +61,9 @@
 // the layout is kept for the contiguous run, not for a measured gain.
 //
 // Limits (the wrapper checks them): D <= kMaxD, i < L <= kMaxL, heads <=
-// kMaxHeads, in_dim <= kMaxIn, adim <= kMaxAdim, D a multiple of the heads.
+// kMaxHeads, in_dim <= kMaxIn, adim <= kMaxAdim, D a multiple of the heads,
+// and in bf16 D even and rep's rows at even strides (fetched in 4-byte
+// words).
 // The launcher returns the launch's cudaError_t; it neither allocates nor
 // synchronises.
 
@@ -73,12 +80,12 @@ constexpr int kMaxIn = 257;
 constexpr int kMaxAdim = 256;
 
 struct Args {
-  const float* x_in;
+  const void* x_in;      // trunk type
   long long x_stride;
-  const float* rep;
+  const void* rep;       // trunk type
   long long rep_stride;
-  const float* wts;
-  float* cache;
+  const char* wts;
+  void* cache;           // trunk type
   long long cache_stride, pos_stride, batch_stride;
   float* logits;   // (B, adim)
   int B, in_dim, D, H, nb, adim, i;
@@ -86,30 +93,40 @@ struct Args {
 
 // kD, kH, kLocal: n_embd, heads and the local matrices as compile-time
 // constants (0, or -1 for the mask: read at run time).
-template <int R, bool kOnChip, int kD, int kH, int kLocal>
+template <class T, int R, bool kOnChip, int kD, int kH, int kLocal>
 __global__ void __launch_bounds__(kThreads, 1) decode_step_kernel(const Args a, const Smem L) {
-  using K = Cfg<R, kOnChip, false, kD, kH, kLocal>;
-  extern __shared__ float sm[];
+  using K = Cfg<T, R, kOnChip, false, kD, kH, kLocal>;
+  extern __shared__ __align__(16) char sm[];
   const int D = kD ? kD : a.D, H = kH ? kH : a.H, in_dim = a.in_dim, tid = threadIdx.x;
-  const Weights WL = weight_layout(false, in_dim, D, a.nb, a.adim);
+  const Weights WL = weight_layout(false, in_dim, D, a.nb, a.adim, sizeof(T));
   Ctx c = make_ctx(sm, L, WL, a.wts, a.B, R, D, H, a.nb, a.adim, a.i + 1);
   c.dcache = a.cache;
   c.cs = a.cache_stride;
   c.ps = a.pos_stride;
   c.bs = a.batch_stride;
+  const T* x_in = static_cast<const T*>(a.x_in);
+  const T* rep = static_cast<const T*>(a.rep);
+  T* xin = sbuf<T>(c, L.xin);
 
-  // ---- the rows' inputs (dead rows of the last cluster 0), weights on chip
+  // ---- weights on chip, the rows' inputs (dead rows of the last cluster
+  // 0): by cp.async in f32; in bf16 rep in 4-byte words, x_in (of any
+  // width) by plain loads while the copies fly
+  if (kOnChip) copy_image(c, WL.total);
+  const int words = D * (int)sizeof(T) / 4;
+  for (int t = tid; t < R * words; t += kThreads) {
+    const int r = t / words, w = t % words;
+    if (r < c.nrows)
+      cp_async4(sm + L.rep + 4 * t,
+                reinterpret_cast<const char*>(rep + (size_t)(c.row0 + r) * a.rep_stride) + 4 * w);
+    else sbuf<float>(c, L.rep)[t] = 0.f;
+  }
   for (int t = tid; t < R * in_dim; t += kThreads) {
     const int r = t / in_dim, k = t % in_dim;
-    if (r < c.nrows) cp_async4(sm + L.xin + t, a.x_in + (size_t)(c.row0 + r) * a.x_stride + k);
-    else sm[L.xin + t] = 0.f;
+    const T* src = x_in + (size_t)(c.row0 + r) * a.x_stride + k;
+    if (r >= c.nrows) xin[t] = from_f<T>(0.f);
+    else if (sizeof(T) == 4) cp_async4(xin + t, src);
+    else xin[t] = *src;
   }
-  for (int t = tid; t < R * D; t += kThreads) {
-    const int r = t / D, d = t % D;
-    if (r < c.nrows) cp_async4(sm + L.rep + t, a.rep + (size_t)(c.row0 + r) * a.rep_stride + d);
-    else sm[L.rep + t] = 0.f;
-  }
-  if (kOnChip) copy_image(c, WL.total);
   cp_async_commit();
   cp_async_wait_all();
   __syncthreads();
@@ -117,28 +134,43 @@ __global__ void __launch_bounds__(kThreads, 1) decode_step_kernel(const Args a, 
 
   // ---- embed the position's input, GELU, LN0 (into t3, LN3's input of a
   // block, read again only after the first block's cluster barriers)
-  stage<K>(c, kEmb, sm + L.w_embed, a.wts + WL.embed_w, D, sm + L.xin, in_dim, D,
-           c.P.embed_b, true, nullptr, L.t3);
-  ln_rows<R>(sm + L.t3, c.P.ln0, c.P.ln0 + D, D, sm + L.x);
+  const T* none = nullptr;
+  stage<K>(c, kEmb, sbuf<T>(c, L.w_embed), wfield<T>(c, WL.embed_w), D, xin, in_dim, D,
+           c.P.embed_b, true, none, L.t3);
+  ln_rows<R>(sbuf<T>(c, L.t3), c.P.ln0, c.P.ln0 + D, D, sbuf<T>(c, L.x));
 
   decoder_position<K>(c, a.i);
 
   // ---- the logits, each CTA its columns, straight to device memory
-  product<R>(sm + L.hh, D, D,
-             view<kOnChip>(sm + L.w_h2, a.wts + WL.head_w2, a.adim, D, a.adim, c.rank,
-                           kCluster),
-             a.adim, c.rank, kCluster, c.P.head_b2, false, nullptr, 0, c.peers, 0, 0, a.adim,
-             a.logits + (size_t)c.row0 * a.adim, c.nrows);
+  product<R>(sbuf<float>(c, L.hh), D, D,
+             view<kOnChip>(sbuf<float>(c, L.w_h2), wfield<float>(c, WL.head_w2), a.adim, D,
+                           a.adim, c.rank, kCluster),
+             a.adim, c.rank, kCluster, c.P.head_b2, false, (const float*)nullptr, 0, c.peers, 0,
+             0, a.adim, a.logits + (size_t)c.row0 * a.adim, c.nrows);
 }
 
-template <int R, bool kOnChip, int kD = 0, int kH = 0, int kLocal = -1>
+template <class T, int R, bool kOnChip, int kD = 0, int kH = 0, int kLocal = -1>
 cudaError_t launch(const Args& a, const Smem& L, cudaStream_t stream) {
   static int smem_set = 0;
-  const int bytes = 4 * L.total;
-  const auto kernel = decode_step_kernel<R, kOnChip, kD, kH, kLocal>;
-  const cudaError_t e = allow_smem(kernel, bytes, &smem_set);
+  const auto kernel = decode_step_kernel<T, R, kOnChip, kD, kH, kLocal>;
+  const cudaError_t e = allow_smem(kernel, L.total, &smem_set);
   if (e != cudaSuccess) return e;
-  return launch_clusters(kernel, cdiv(a.B, R), bytes, stream, a, L);
+  return launch_clusters(kernel, cdiv(a.B, R), L.total, stream, a, L);
+}
+
+// The plan of the launch (decode_layout.cuh) and the kernel it takes; the
+// scores of a pair take i + 1 floats: the layout for L positions holds them.
+template <class T>
+cudaError_t run(const Args& a, int L, cudaStream_t s) {
+  constexpr int es = sizeof(T);
+  const Smem S = plan_layout(false, a.B, a.D, a.H, a.nb, a.adim, L, a.in_dim, es);
+  if (!on_chip(S)) return launch<T, device_rows(false), false>(a, S, s);
+  const bool recipe = recipe_kernel(false, S, a.B, a.D, a.H);
+  if (chip_rows(a.B) == 2)
+    return recipe ? launch<T, 2, true, 64, 2, recipe_local(false, 2, es)>(a, S, s)
+                  : launch<T, 2, true>(a, S, s);
+  return recipe ? launch<T, 8, true, 64, 2, recipe_local(false, 8, es)>(a, S, s)
+                : launch<T, 8, true>(a, S, s);
 }
 
 }  // namespace
@@ -146,38 +178,31 @@ cudaError_t launch(const Args& a, const Smem& L, cudaStream_t stream) {
 // x_in (B, in_dim) with row stride x_stride, rep (B, D) with row stride
 // rep_stride, weights: the flat DecodeStepWeights (on the on-chip path
 // followed by their image, ops/decode_plan.py::with_image), cache: the 4 nb
-// caches of L positions (strides in floats as above), logits (B, adim)
-// contiguous; all f32, each row's innermost dim contiguous.
+// caches of L positions (strides in elements as above), logits (B, adim)
+// f32 contiguous; x_in, rep and the caches of the trunk type (dtype 0 f32,
+// 1 bf16), each row's innermost dim contiguous.
 extern "C" cudaError_t mat_decode_step(const void* x_in, long long x_stride, const void* rep,
                                        long long rep_stride, const void* weights, void* cache,
                                        long long cache_stride, long long pos_stride,
                                        long long batch_stride, void* logits, int B, int L,
                                        int in_dim, int D, int H, int nb, int adim, int i,
-                                       void* stream) {
+                                       int dtype, void* stream) {
   if (B < 1 || L < 1 || L > kMaxL || i < 0 || i >= L || D < 1 || D > kMaxD || H < 1 ||
       H > kMaxHeads || D % H != 0 || nb < 1 || in_dim < 1 || in_dim > kMaxIn || adim < 1 ||
-      adim > kMaxAdim) {
+      adim > kMaxAdim || dtype < 0 || dtype > 1 ||
+      (dtype == 1 && (D % 2 != 0 || rep_stride % 2 != 0 ||
+                      reinterpret_cast<size_t>(rep) % 4 != 0))) {
     return cudaErrorInvalidValue;
   }
-  // the scores of a pair take i + 1 floats: the layout for L positions holds them
-  const Smem S = plan_layout(false, B, D, H, nb, adim, L, in_dim);
-  const Args a{static_cast<const float*>(x_in), x_stride, static_cast<const float*>(rep),
-               rep_stride, static_cast<const float*>(weights), static_cast<float*>(cache),
+  const Args a{x_in, x_stride, rep, rep_stride, static_cast<const char*>(weights), cache,
                cache_stride, pos_stride, batch_stride, static_cast<float*>(logits),
                B, in_dim, D, H, nb, adim, i};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!on_chip(S)) return launch<device_rows(false), false>(a, S, s);
-  const bool recipe = recipe_kernel(false, S, B, D, H);
-  if (chip_rows(B) == 2)
-    return recipe ? launch<2, true, 64, 2, kStepRecipe2>(a, S, s) : launch<2, true>(a, S, s);
-  return recipe ? launch<8, true, 64, 2, kStepRecipe8>(a, S, s) : launch<8, true>(a, S, s);
+  return dtype == 1 ? run<bf16>(a, L, s) : run<float>(a, L, s);
 }
 
-// The number of f32 values in the flat weight buffer, and the limits the
-// wrapper checks against, so the two sides cannot drift apart.
-extern "C" long long mat_decode_step_weight_count(int in_dim, int D, int nb, int adim) {
-  return weight_layout(false, in_dim, D, nb, adim).total;
-}
+// The limits the wrapper checks against, so the two sides cannot drift
+// apart (the flat weights' bytes: decode_layout.cuh mat_decode_weight_bytes).
 extern "C" int mat_decode_step_max_d() { return kMaxD; }
 extern "C" int mat_decode_step_max_l() { return kMaxL; }
 extern "C" int mat_decode_step_max_heads() { return kMaxHeads; }

@@ -20,6 +20,10 @@ tail and for ``continuous``, ``(A, B, adim - discrete_dim)`` for the Gaussian
 part of ``available_continuous``.  Row ``i`` of each is what JAX draws at
 position ``i`` from ``k_d`` and ``k_c`` of ``key, k_d, k_c = split(key, 3)``,
 at the same shapes.
+
+With a bf16 trunk (``MATConfig(dtype="bfloat16")``) ``obs_rep``, the caches
+and the decode kernels' inputs are bf16, as the JAX decode's are; values,
+logits, log-probs and actions are f32.
 """
 
 from __future__ import annotations
@@ -300,21 +304,23 @@ def _decode_step_path(model, obs_rep, available_actions, deterministic, *,
     ``ops/decode_step.fused_decode_step`` per position (the kernel on the
     card, its plain twin on the CPU), its K/V caches in one workspace
     allocated here, and the position's sampling in PyTorch between
-    launches."""
+    launches.  The kernel takes its input in the trunk's dtype, as the
+    embedding's Dense casts it."""
     cfg = model.cfg
     dev = obs_rep.device
     B, A, Dm = obs_rep.shape
+    dt = cfg.trunk_dtype
     if available_actions is None:
         available_actions = torch.ones(B, A, cfg.action_dim, device=dev)
     if not deterministic:
         gumbel, tail_noise = _draw_noise(cfg, B, dev, generator, gumbel, tail_noise)
     std = model.action_std()
     weights = pack_decode_weights(model)
-    caches = decode_caches(cfg.n_block, A, B, Dm, dev)
+    caches = decode_caches(cfg.n_block, A, B, Dm, dev, dtype=dt)
     shifted = _start_token(cfg, B, dev)[:, 0]
     acts, logps = [], []
     for i in range(A):
-        logits = fused_decode_step(weights, shifted, obs_rep[:, i], caches, i,
+        logits = fused_decode_step(weights, shifted.to(dt), obs_rep[:, i], caches, i,
                                    n_head=cfg.n_head, adim=cfg.action_dim)
         act, logp, nxt = _sample_position(
             cfg, logits, available_actions[:, i], i, *_noise_at(gumbel, tail_noise, i),
@@ -333,7 +339,7 @@ def _fused_ar_decode_path(model, obs_rep, available_actions, deterministic, *,
     kernel's inputs: the Gumbel tensor, and the tail noise of agents ``>=
     nd`` as ``(B, A - nd, adim)`` normal rows; a deterministic decode passes
     zeros (argmax of the masked logits, the tail's mean), as the JAX path
-    does."""
+    does.  ``obs_rep`` goes in in the trunk's dtype."""
     cfg = model.cfg
     dev = obs_rep.device
     B, A, adim = obs_rep.shape[0], cfg.n_agent, cfg.action_dim

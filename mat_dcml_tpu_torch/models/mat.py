@@ -12,7 +12,10 @@ categorical, the tail agents Gaussian with ``std = sigmoid(log_std) * 0.5``);
 ``available_continuous`` (a one-hot over the first ``discrete_dim`` dims, then
 a Gaussian over the rest).
 
-The trunk runs in f32 in this slice; the heads always do.
+The trunk runs in ``MATConfig.dtype`` (``"float32"`` or ``"bfloat16"``, the
+mixed-precision mode the JAX package's benchmark runs); the parameters, the
+heads, attention scores and softmax and the distributions stay f32
+(``modules.py``).
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ AVAILABLE_CONTINUOUS = "available_continuous"
 ACTION_TYPES = (DISCRETE, SEMI_DISCRETE, CONTINUOUS, AVAILABLE_CONTINUOUS)
 
 NORMAL_STD = 0.5
+TRUNK_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,10 +58,26 @@ class MATConfig:
     action_type: str = DISCRETE
     semi_index: int = -1          # number of trailing continuous agents, negated
     discrete_dim: int = 2         # available_continuous: leading one-hot dims
+    # the trunk's computation dtype; params, heads and distributions stay f32
+    dtype: str = "float32"
 
     def __post_init__(self):
         if self.action_type not in ACTION_TYPES:
             raise ValueError(f"action_type must be one of {ACTION_TYPES}, got {self.action_type!r}")
+        if self.dtype not in TRUNK_DTYPES:
+            raise ValueError(f"dtype must be one of {tuple(TRUNK_DTYPES)}, got {self.dtype!r}")
+
+    @property
+    def trunk_dtype(self) -> torch.dtype:
+        """The trunk's torch dtype: its activations, decode caches and the
+        decode kernels' weights."""
+        return TRUNK_DTYPES[self.dtype]
+
+    @property
+    def compute_dtype(self):
+        """The modules' compute dtype: None (their f32 parameters' own) for
+        an f32 trunk."""
+        return None if self.dtype == "float32" else self.trunk_dtype
 
     @property
     def action_input_dim(self) -> int:
@@ -90,10 +110,10 @@ class MATConfig:
 class ObsEncoder(nn.Module):
     """LayerNorm -> Linear -> GELU embed."""
 
-    def __init__(self, in_dim: int, n_embd: int):
+    def __init__(self, in_dim: int, n_embd: int, dtype: torch.dtype | None = None):
         super().__init__()
-        self.LayerNorm_0 = layer_norm(in_dim)
-        self.Dense_0 = Dense(in_dim, n_embd, gain=GAIN_ACT)
+        self.LayerNorm_0 = layer_norm(in_dim, dtype)
+        self.Dense_0 = Dense(in_dim, n_embd, gain=GAIN_ACT, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return gelu(self.Dense_0(self.LayerNorm_0(x)))
@@ -119,9 +139,11 @@ class Encoder(nn.Module):
 
     def __init__(self, cfg: MATConfig):
         super().__init__()
-        self.obs_encoder = ObsEncoder(cfg.obs_dim, cfg.n_embd)
-        self.ln = layer_norm(cfg.n_embd)
-        self.blocks = nn.ModuleList(EncodeBlock(cfg.n_embd, cfg.n_head) for _ in range(cfg.n_block))
+        dt = cfg.compute_dtype
+        self.obs_encoder = ObsEncoder(cfg.obs_dim, cfg.n_embd, dt)
+        self.ln = layer_norm(cfg.n_embd, dt)
+        self.blocks = nn.ModuleList(EncodeBlock(cfg.n_embd, cfg.n_head, dt)
+                                    for _ in range(cfg.n_block))
         self.head = Head(cfg.n_embd, 1)
 
     def forward(self, state: torch.Tensor, obs: torch.Tensor):
@@ -138,14 +160,18 @@ class Decoder(nn.Module):
     def __init__(self, cfg: MATConfig):
         super().__init__()
         self.cfg = cfg
+        dt = cfg.compute_dtype
         if cfg.action_type != DISCRETE:
             self.log_std = nn.Parameter(torch.ones(cfg.action_dim))
         if cfg.action_type in (DISCRETE, SEMI_DISCRETE):
-            self.action_encoder_nobias = Dense(cfg.action_input_dim, cfg.n_embd, gain=GAIN_ACT, bias=False)
+            self.action_encoder_nobias = Dense(cfg.action_input_dim, cfg.n_embd, gain=GAIN_ACT,
+                                               bias=False, dtype=dt)
         else:
-            self.action_encoder_bias = Dense(cfg.action_input_dim, cfg.n_embd, gain=GAIN_ACT)
-        self.ln = layer_norm(cfg.n_embd)
-        self.blocks = nn.ModuleList(DecodeBlock(cfg.n_embd, cfg.n_head) for _ in range(cfg.n_block))
+            self.action_encoder_bias = Dense(cfg.action_input_dim, cfg.n_embd, gain=GAIN_ACT,
+                                             dtype=dt)
+        self.ln = layer_norm(cfg.n_embd, dt)
+        self.blocks = nn.ModuleList(DecodeBlock(cfg.n_embd, cfg.n_head, dt)
+                                    for _ in range(cfg.n_block))
         self.head = Head(cfg.n_embd, cfg.action_dim)
 
     def _embed_action(self, shifted_action: torch.Tensor) -> torch.Tensor:
@@ -232,5 +258,8 @@ class MultiAgentTransformer(nn.Module):
         return self.decoder.std()
 
     def fresh_packed_cache(self, batch: int):
+        """The packed K/V caches of :meth:`decode_step_cached`, in the trunk's
+        dtype."""
         c = self.cfg
-        return init_packed_cache(c.n_block, batch, c.n_agent, c.n_embd, c.n_head, device=self.device)
+        return init_packed_cache(c.n_block, batch, c.n_agent, c.n_embd, c.n_head,
+                                 dtype=c.trunk_dtype, device=self.device)

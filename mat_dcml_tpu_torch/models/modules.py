@@ -5,6 +5,15 @@ modules' parameter names (``key_p``, ``Dense_0``, ``ln1`` ...), so
 ``bridge.py`` maps a flax tree onto ``state_dict`` keys one to one.
 Initialisation mirrors the reference: orthogonal weights with gain 0.01, or
 the ReLU gain sqrt(2) for "activated" layers, and zero biases.
+
+A compute dtype (``dtype``; None is f32) runs the trunk as flax's
+``dtype=bfloat16`` does, by explicit casts (not autocast, whose per-op rules
+round elsewhere): a :class:`Dense` casts its input, weight and bias to it at
+use and adds the bias after the product's rounding (flax's
+``dot_general(...) + bias``); a :class:`LayerNorm` takes its statistics and
+applies its scale and bias in f32 and returns the compute dtype.  The
+parameters stay what they are (f32 in training), so gradients flow back
+through the casts into them.
 """
 
 from __future__ import annotations
@@ -22,20 +31,37 @@ GAIN_OUT = 0.01
 LN_EPS = 1e-6   # flax LayerNorm's epsilon; torch's default is 1e-5
 
 
+SQRT_HALF_BF16 = 0.70703125   # sqrt(0.5) rounded to bf16, as jax.nn.gelu rounds it
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
-    """Exact (erf) GELU."""
-    return F.gelu(x)
+    """Exact (erf) GELU.  On a bf16 tensor it runs ``jax.nn.gelu``'s ops one
+    by one, each rounded to bf16 (``0.5 * x * erfc(-x * sqrt(0.5))``, the
+    constant in bf16), as flax's bf16 trunk computes it; one rounding of the
+    f32 result differs from that in about a third of the elements."""
+    if x.dtype != torch.bfloat16:
+        return F.gelu(x)
+    return (0.5 * x) * torch.special.erfc(-x * SQRT_HALF_BF16)
 
 
 class Dense(nn.Linear):
     """``nn.Linear`` with the reference's orthogonal init.  ``weight`` is
-    ``(out, in)``: the transpose of a flax ``kernel``."""
+    ``(out, in)``: the transpose of a flax ``kernel``.  ``dtype``: the
+    compute dtype (None: the parameters' own, f32)."""
 
     def __init__(self, in_features: int, out_features: int, gain: float = GAIN_OUT,
-                 bias: bool = True):
+                 bias: bool = True, dtype: torch.dtype | None = None):
         super().__init__(in_features, out_features, bias=bias)
         self.gain = gain
+        self.compute_dtype = dtype
         self.reset_parameters()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        y = F.linear(x.to(dt), self.weight.to(dt))
+        return y if self.bias is None else y + self.bias.to(dt)
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         gain = getattr(self, "gain", None)
@@ -46,24 +72,41 @@ class Dense(nn.Linear):
             nn.init.zeros_(self.bias)
 
 
-def layer_norm(n: int) -> nn.LayerNorm:
-    return nn.LayerNorm(n, eps=LN_EPS)
+class LayerNorm(nn.LayerNorm):
+    """flax's ``nn.LayerNorm`` (eps 1e-6).  With a compute ``dtype`` the
+    statistics, scale and bias are f32 and the output is rounded to it."""
+
+    def __init__(self, n: int, dtype: torch.dtype | None = None):
+        super().__init__(n, eps=LN_EPS)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype is None:
+            return super().forward(x)
+        y = F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
+                         self.bias.float(), self.eps)
+        return y.to(self.compute_dtype)
+
+
+def layer_norm(n: int, dtype: torch.dtype | None = None) -> LayerNorm:
+    return LayerNorm(n, dtype)
 
 
 class SelfAttention(nn.Module):
     """QKV attention over the agent axis, with the split projections the
     cached decode uses."""
 
-    def __init__(self, n_embd: int, n_head: int, masked: bool = False):
+    def __init__(self, n_embd: int, n_head: int, masked: bool = False,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         if n_embd % n_head:
             raise ValueError(f"n_embd {n_embd} is not a multiple of n_head {n_head}")
         self.n_head = n_head
         self.masked = masked
-        self.key_p = Dense(n_embd, n_embd)
-        self.query_p = Dense(n_embd, n_embd)
-        self.value_p = Dense(n_embd, n_embd)
-        self.proj = Dense(n_embd, n_embd)
+        self.key_p = Dense(n_embd, n_embd, dtype=dtype)
+        self.query_p = Dense(n_embd, n_embd, dtype=dtype)
+        self.value_p = Dense(n_embd, n_embd, dtype=dtype)
+        self.proj = Dense(n_embd, n_embd, dtype=dtype)
 
     def forward(self, key: torch.Tensor, value: torch.Tensor, query: torch.Tensor) -> torch.Tensor:
         k = split_heads(self.key_p(key), self.n_head)
@@ -91,10 +134,10 @@ class SelfAttention(nn.Module):
 class MlpBlock(nn.Module):
     """Linear-GELU-Linear."""
 
-    def __init__(self, n_embd: int):
+    def __init__(self, n_embd: int, dtype: torch.dtype | None = None):
         super().__init__()
-        self.Dense_0 = Dense(n_embd, n_embd, gain=GAIN_ACT)
-        self.Dense_1 = Dense(n_embd, n_embd)
+        self.Dense_0 = Dense(n_embd, n_embd, gain=GAIN_ACT, dtype=dtype)
+        self.Dense_1 = Dense(n_embd, n_embd, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.Dense_1(gelu(self.Dense_0(x)))
@@ -103,12 +146,12 @@ class MlpBlock(nn.Module):
 class EncodeBlock(nn.Module):
     """Post-LN residual encoder block with unmasked attention."""
 
-    def __init__(self, n_embd: int, n_head: int):
+    def __init__(self, n_embd: int, n_head: int, dtype: torch.dtype | None = None):
         super().__init__()
-        self.ln1 = layer_norm(n_embd)
-        self.ln2 = layer_norm(n_embd)
-        self.attn = SelfAttention(n_embd, n_head, masked=False)
-        self.mlp = MlpBlock(n_embd)
+        self.ln1 = layer_norm(n_embd, dtype)
+        self.ln2 = layer_norm(n_embd, dtype)
+        self.attn = SelfAttention(n_embd, n_head, masked=False, dtype=dtype)
+        self.mlp = MlpBlock(n_embd, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.ln1(x + self.attn(x, x, x))
@@ -119,14 +162,14 @@ class DecodeBlock(nn.Module):
     """Causal self-attention over shifted actions, then causal cross-attention
     with the encoder representation as query."""
 
-    def __init__(self, n_embd: int, n_head: int):
+    def __init__(self, n_embd: int, n_head: int, dtype: torch.dtype | None = None):
         super().__init__()
-        self.ln1 = layer_norm(n_embd)
-        self.ln2 = layer_norm(n_embd)
-        self.ln3 = layer_norm(n_embd)
-        self.attn1 = SelfAttention(n_embd, n_head, masked=True)
-        self.attn2 = SelfAttention(n_embd, n_head, masked=True)
-        self.mlp = MlpBlock(n_embd)
+        self.ln1 = layer_norm(n_embd, dtype)
+        self.ln2 = layer_norm(n_embd, dtype)
+        self.ln3 = layer_norm(n_embd, dtype)
+        self.attn1 = SelfAttention(n_embd, n_head, masked=True, dtype=dtype)
+        self.attn2 = SelfAttention(n_embd, n_head, masked=True, dtype=dtype)
+        self.mlp = MlpBlock(n_embd, dtype)
 
     def forward(self, x: torch.Tensor, rep_enc: torch.Tensor) -> torch.Tensor:
         x = self.ln1(x + self.attn1(x, x, x))

@@ -17,10 +17,16 @@ tile that aliasing the caches in and out needs (``pallas_decode.py:285-288``):
 here the caches are updated in place in one workspace that the caller
 allocates once per decode (:func:`decode_caches`).
 
+Two trunk types, as in ``ops/ar_decode.py``: f32 and bf16.  In bf16
+``x_in``, ``rep_i``, the caches and the trunk's matrices are bf16; the biases,
+LayerNorm parameters, head and logits stay f32, and the arithmetic rounds to
+bf16 where the TPU kernel rounds.
+
 ``fused_decode_step`` takes the plain twin :func:`decode_step_plain` for
 tensors on the CPU and launches ``csrc/decode_step.cu`` for tensors on a CUDA
-device; it never falls back from the kernel.  ``launches`` counts kernel
-launches and nothing else.  f32 only: the port's trunk is f32.
+device, its f32 or bf16 leg by the trunk's dtype; it never falls back from
+the kernel and never casts.  ``launches`` counts kernel launches and nothing
+else.
 """
 
 from __future__ import annotations
@@ -31,8 +37,21 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from mat_dcml_tpu_torch.ops.ar_decode import _block, _ln
-from mat_dcml_tpu_torch.ops.decode_plan import Plan, bind, launch_plan, with_image
+from mat_dcml_tpu_torch.ops.ar_decode import _block, _dense, _head, _ln, _rnd
+from mat_dcml_tpu_torch.ops.decode_plan import (
+    DTYPE_CODE,
+    ESIZE,
+    TRUNK_FIELDS,
+    Plan,
+    bind,
+    dtype_name,
+    flat_of,
+    launch_plan,
+    pack_flat,
+    units,
+    weights_version,
+    with_image,
+)
 
 launches = 0
 _limits: dict = {}
@@ -40,8 +59,10 @@ _limits: dict = {}
 
 class DecodeStepWeights(NamedTuple):
     """Decoder weights packed for one decode position, dense kernels as
-    ``(in, out)`` (the flax layout), unpadded.  The kernel reads them as one
-    flat f32 buffer in this field order (``csrc/decode_step.cu::weight_layout``)."""
+    ``(in, out)`` (the flax layout), unpadded: the trunk's matrices
+    (``decode_plan.TRUNK_FIELDS``) in the trunk's dtype, every other field
+    f32.  The kernel reads them as one flat buffer in this field order
+    (``csrc/decode_layout.cuh::weight_layout``)."""
 
     embed_w: torch.Tensor        # (in_dim, D) action embedding
     embed_b: torch.Tensor        # (D,) its bias
@@ -65,8 +86,9 @@ class DecodeStepWeights(NamedTuple):
 def pack_decode_weights(model) -> DecodeStepWeights:
     """The port's ``MultiAgentTransformer`` of a continuous family ->
     :class:`DecodeStepWeights` on the model's device (the embedding is its
-    ``action_encoder_bias``).  The fields are views into one flat buffer in
-    the kernel's order, so a launch reads them without a copy."""
+    ``action_encoder_bias``), the trunk's matrices in its ``cfg.dtype``.  The
+    fields are views into one flat buffer in the kernel's layout, so a
+    launch reads them without a copy."""
     dec = model.decoder
     if not hasattr(dec, "action_encoder_bias"):
         raise NotImplementedError(
@@ -101,20 +123,19 @@ def pack_decode_weights(model) -> DecodeStepWeights:
             kernel(head.Dense_0), head.Dense_0.bias, ln(head.LayerNorm_0),
             kernel(head.Dense_1), head.Dense_1.bias,
         )
-        flat = torch.cat([t.float().reshape(-1) for t in fields])
-        views, at = [], 0
-        for t in fields:
-            views.append(flat[at:at + t.numel()].view(t.shape))
-            at += t.numel()
-        return DecodeStepWeights(*views)
+        return DecodeStepWeights(*pack_flat(fields, DecodeStepWeights._fields,
+                                            model.cfg.trunk_dtype))
 
 
-def decode_caches(n_block: int, length: int, batch: int, n_embd: int, device) -> torch.Tensor:
-    """The zeroed K/V workspace of one decode: ``(4 * n_block, L, B, D)`` f32,
-    cache ``4 b + c`` being block b's k1, v1, k2, v2, indexed position-major
-    as the TPU kernel's caches are.  It is stored batch-major (each row's
-    positions contiguous), so a kernel block reads its row's keys as one run."""
-    return torch.zeros(4 * n_block, batch, length, n_embd, device=device).transpose(1, 2)
+def decode_caches(n_block: int, length: int, batch: int, n_embd: int, device,
+                  dtype=torch.float32) -> torch.Tensor:
+    """The zeroed K/V workspace of one decode: ``(4 * n_block, L, B, D)`` of
+    the trunk's ``dtype``, cache ``4 b + c`` being block b's k1, v1, k2, v2,
+    indexed position-major as the TPU kernel's caches are.  It is stored
+    batch-major (each row's positions contiguous), so a kernel block reads
+    its row's keys as one run."""
+    return torch.zeros(4 * n_block, batch, length, n_embd, device=device,
+                       dtype=dtype).transpose(1, 2)
 
 
 # ---------------------------------------------------------------------------
@@ -126,21 +147,23 @@ def decode_step_plain(weights: DecodeStepWeights, x_in: torch.Tensor, rep_i: tor
     """The kernel's arithmetic in plain PyTorch, batched over B.
 
     ``x_in (B, in_dim)``, ``rep_i (B, D)``, ``caches (4 * n_block, L, B, D)``
-    (written in place at position ``i``).  Returns the ``(B, adim)`` f32
-    logits (``adim``, the head's width, is checked by the wrapper).  The
-    blocks are the whole decode's (``ar_decode._block``), on head-split views
-    of the caches."""
-    w = weights
+    (written in place at position ``i``), all of the trunk's dtype (f32 or
+    bf16).  Returns the ``(B, adim)`` f32 logits (``adim``, the head's width,
+    is checked by the wrapper).  The blocks are the whole decode's
+    (``ar_decode._block``), on head-split views of the caches, rounded as
+    the kernel rounds."""
+    dt = rep_i.dtype
+    w = DecodeStepWeights(*(t.float() for t in weights))   # bf16 widens exactly
     L, B, D = caches.shape[1:]
     n_block = w.block_qkvp1_w.shape[0]
     valid = torch.arange(L, device=caches.device) <= i
     # (4 n_block, L, B, D) -> per block (4, B, H, L, Dh) views of the same memory
     heads = caches.unflatten(-1, (n_head, D // n_head)).permute(0, 2, 3, 1, 4)
-    x = _ln(F.gelu(torch.addmm(w.embed_b, x_in, w.embed_w)), w.ln0)
+    x = _ln(_rnd(F.gelu(_dense(x_in.float(), w.embed_w, w.embed_b, dt)), dt), w.ln0, dt)
+    rep = rep_i.float()
     for b in range(n_block):
-        x = _block(w, b, x, rep_i, heads[4 * b:4 * b + 4], i, valid, n_head)
-    t = _ln(F.gelu(torch.addmm(w.head_b1, x, w.head_w1)), w.head_ln)
-    return torch.addmm(w.head_b2, t, w.head_w2)
+        x = _block(w, b, x, rep, heads[4 * b:4 * b + 4], i, valid, n_head, dt)
+    return _head(w, x)
 
 
 # ---------------------------------------------------------------------------
@@ -155,10 +178,8 @@ def _library() -> ctypes.CDLL:
         return lib
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.mat_decode_step.argtypes = ([ptr, i64, ptr, i64, ptr, ptr, i64, i64, i64, ptr]
-                                    + [i32] * 8 + [ptr])
+                                    + [i32] * 9 + [ptr])
     lib.mat_decode_step.restype = i32   # cudaError_t
-    lib.mat_decode_step_weight_count.argtypes = [i32] * 4
-    lib.mat_decode_step_weight_count.restype = i64
     bind(lib)
     for name in ("d", "l", "heads", "in", "adim"):
         getattr(lib, f"mat_decode_step_max_{name}").restype = i32
@@ -167,11 +188,13 @@ def _library() -> ctypes.CDLL:
 
 
 def kernel_plan(B: int, L: int, in_dim: int, *, n_embd: int, n_head: int, n_block: int,
-                adim: int) -> Plan:
+                adim: int, dtype=torch.float32) -> Plan:
     """The launch plan the compiled kernel takes for B rows with caches of
-    L positions at these widths; building it if need be."""
+    L positions at these widths, with a trunk of ``dtype``; building it if
+    need be."""
     return launch_plan(_library(), "decode_step", B, n_embd=n_embd, n_head=n_head,
-                       n_block=n_block, adim=adim, n_pos=L, in_dim=in_dim)
+                       n_block=n_block, adim=adim, n_pos=L, in_dim=in_dim,
+                       esize=ESIZE[dtype_name(dtype)])
 
 
 def kernel_limits() -> dict:
@@ -193,13 +216,16 @@ def _check_inputs(weights, x_in, rep_i, caches, i, n_head, adim):
     n_block = weights.block_qkvp1_w.shape[0]
     in_dim = x_in.shape[1]
     dev = rep_i.device
-    for name, t in [("x_in", x_in), ("rep_i", rep_i), ("caches", caches)] + list(
+    trunk = rep_i.dtype
+    dtype_name(trunk)
+    for name, t in [("x_in", x_in), ("caches", caches)] + list(
             zip(DecodeStepWeights._fields, weights)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, rep_i on {dev}: one device for all")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} is {t.dtype}: the decode step runs in f32 only "
-                             "(a bf16 trunk is ROADMAP.md queue 1, item 3)")
+        want = trunk if name in TRUNK_FIELDS or name in ("x_in", "caches") else torch.float32
+        if t.dtype != want:
+            raise ValueError(f"{name} is {t.dtype}, not {want}: with a {trunk} rep_i, x_in, the "
+                             f"caches and the trunk's matrices are {trunk}, the rest f32")
     if x_in.shape[0] != B or caches.shape[0] != 4 * n_block or caches.shape[2:] != (B, D):
         raise ValueError(f"x_in {tuple(x_in.shape)} and caches {tuple(caches.shape)} do not fit "
                          f"rep_i {tuple(rep_i.shape)} and {n_block} blocks")
@@ -215,19 +241,6 @@ def _check_inputs(weights, x_in, rep_i, caches, i, n_head, adim):
                              f"{tuple(getattr(weights, name).shape)}")
 
 
-def _flat_weights(weights: DecodeStepWeights, count: int) -> torch.Tensor:
-    """The weights as one flat buffer: the buffer they are views into, when
-    :func:`pack_decode_weights` made them, else a copy."""
-    base, at = weights[0], 0
-    for t in weights:
-        if not t.is_contiguous() or t.data_ptr() != base.data_ptr() + 4 * at:
-            return torch.cat([w.reshape(-1) for w in weights])
-        at += t.numel()
-    if at != count:
-        raise ValueError(f"packed weights hold {at} values, the kernel's layout {count}")
-    return base.as_strided((at,), (1,))   # all the fields: the buffer they are views into
-
-
 def fused_decode_step(weights: DecodeStepWeights, x_in: torch.Tensor, rep_i: torch.Tensor,
                       caches: torch.Tensor, i: int, *, n_head: int, adim: int) -> torch.Tensor:
     """One decode position: ``(B, adim)`` f32 logits, with position ``i``'s
@@ -235,9 +248,9 @@ def fused_decode_step(weights: DecodeStepWeights, x_in: torch.Tensor, rep_i: tor
 
     Inputs as :func:`decode_step_plain`; ``x_in``, ``rep_i`` and each cache's
     rows may be strided views whose last dim is contiguous.  On the CPU it
-    is the plain twin; on a CUDA device it launches ``csrc/decode_step.cu``
-    (a cluster of 4 CTAs per ``plan.rows`` batch rows, :func:`kernel_plan`)
-    or raises."""
+    is the plain twin; on a CUDA device it launches the leg of
+    ``csrc/decode_step.cu`` of the trunk's dtype (a cluster of 4 CTAs per
+    ``plan.rows`` batch rows, :func:`kernel_plan`) or raises."""
     global launches
     _check_inputs(weights, x_in, rep_i, caches, i, n_head, adim)
     if rep_i.device.type == "cpu":
@@ -255,19 +268,27 @@ def fused_decode_step(weights: DecodeStepWeights, x_in: torch.Tensor, rep_i: tor
             raise ValueError(f"decode_step holds at most {most} {what}, got {value}")
     if x_in.stride(1) != 1 or rep_i.stride(1) != 1 or caches.stride(3) != 1:
         raise ValueError("x_in, rep_i and caches need a contiguous last dim")
+    dt = rep_i.dtype
+    if dt == torch.bfloat16 and (D % 2 or rep_i.stride(0) % 2 or rep_i.data_ptr() % 4):
+        raise ValueError("the bf16 decode step takes an even n_embd and rep_i rows at even "
+                         f"strides on 4-byte boundaries, got n_embd {D}, stride "
+                         f"{rep_i.stride(0)}")
     lib = _library()
-    flat = _flat_weights(weights, lib.mat_decode_step_weight_count(in_dim, D, n_block, adim))
-    plan = kernel_plan(B, L, in_dim, n_embd=D, n_head=n_head, n_block=n_block, adim=adim)
+    esize = ESIZE[dtype_name(dt)]
+    count = lib.mat_decode_weight_bytes(0, in_dim, D, n_block, adim, esize)
+    flat = flat_of(weights, dt, count)
+    plan = kernel_plan(B, L, in_dim, n_embd=D, n_head=n_head, n_block=n_block, adim=adim,
+                       dtype=dt)
     if plan.on_chip:
-        flat = with_image(flat, lib, "decode_step", plan, n_embd=D, n_block=n_block, adim=adim,
-                          in_dim=in_dim)
+        flat = with_image(units(flat, esize), lib, "decode_step", plan, n_embd=D, n_block=n_block,
+                          adim=adim, in_dim=in_dim, version=weights_version(weights))
     logits = torch.empty(B, adim, device=rep_i.device)
     with torch.cuda.device(rep_i.device):
         rc = lib.mat_decode_step(
             x_in.data_ptr(), x_in.stride(0), rep_i.data_ptr(), rep_i.stride(0), flat.data_ptr(),
             caches.data_ptr(), caches.stride(0), caches.stride(1), caches.stride(2),
             logits.data_ptr(), B, L, in_dim, D, n_head, n_block, adim, i,
-            torch.cuda.current_stream(rep_i.device).cuda_stream,
+            DTYPE_CODE[dtype_name(dt)], torch.cuda.current_stream(rep_i.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"decode_step launch failed: cudaError {rc}")

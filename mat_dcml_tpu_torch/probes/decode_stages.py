@@ -37,22 +37,20 @@ TOL = 1e-4                                     # log-probs; the same code, so 0 
 
 def _library() -> ctypes.CDLL:
     from mat_dcml_tpu_torch.ops import kernel_lib
-    from mat_dcml_tpu_torch.ops.decode_plan import bind
+    from mat_dcml_tpu_torch.ops.ar_decode import bind_library
 
     lib = kernel_lib.load("decode_probe")
-    if getattr(lib, "_mat_typed", False):
+    if getattr(lib, "_mat_probe_typed", False):
         return lib
+    bind_library(lib)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.mat_ar_decode.argtypes = [ptr] * 8 + [i32] * 8 + [ptr]
-    lib.mat_ar_decode.restype = i32
     lib.mat_decode_probe_reset.restype = i32
     lib.mat_decode_probe_read.argtypes = [ctypes.POINTER(ctypes.c_longlong),
                                           ctypes.POINTER(i32), i32]
     lib.mat_decode_probe_read.restype = i32
     lib.mat_decode_probe_barriers.argtypes = [i32, i32, ptr, ptr]
     lib.mat_decode_probe_barriers.restype = i32
-    bind(lib)
-    lib._mat_typed = True
+    lib._mat_probe_typed = True
     return lib
 
 
@@ -128,7 +126,7 @@ def stages(lib, B: int, seed: int = 0) -> dict:
     """One probed decode of B rows: the average position's cycles by step,
     checked against the unprobed kernel, and both kernels' times."""
     from mat_dcml_tpu_torch.ops import ar_decode as ard
-    from mat_dcml_tpu_torch.ops.decode_plan import launch_plan, with_image
+    from mat_dcml_tpu_torch.ops.decode_plan import launch_plan
     from mat_dcml_tpu_torch.ops.distributions import gumbel_noise
 
     cfg = _dcml_config()
@@ -146,20 +144,11 @@ def stages(lib, B: int, seed: int = 0) -> dict:
 
     plan = launch_plan(lib, "ar_decode", B, n_embd=D, n_head=cfg.n_head, n_block=nb, adim=adim,
                        n_pos=A)
-    flat = torch.cat([t.reshape(-1) for t in weights])
-    if plan.on_chip:
-        flat = with_image(flat, lib, "ar_decode", plan, n_embd=D, n_block=nb, adim=adim)
-    act = torch.empty(B, A, device=dev)
-    logp = torch.empty(B, A, device=dev)
-    workspace = torch.empty(5 * B * nb * A * D, device=dev)
+    out = {}
 
     def probed():
-        rc = lib.mat_ar_decode(rep.data_ptr(), gumbel.data_ptr(), normal.data_ptr(),
-                               avail.data_ptr(), flat.data_ptr(), workspace.data_ptr(),
-                               act.data_ptr(), logp.data_ptr(), B, A, D, cfg.n_head, nb, adim,
-                               nd, normal.shape[1], torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"probed ar_decode launch failed: cudaError {rc}")
+        out["act"], out["logp"] = ard.launch(lib, weights, rep, gumbel, normal, avail,
+                                             normal.shape[1], **kw)
 
     if lib.mat_decode_probe_reset() != 0:
         raise RuntimeError("could not reset the stage clocks")
@@ -171,6 +160,7 @@ def stages(lib, B: int, seed: int = 0) -> dict:
     if n <= 0:
         raise RuntimeError(f"no stage clocks read ({n})")
     ref_act, ref_logp = ard.fused_ar_decode(weights, rep, gumbel, normal, avail, **kw)
+    act, logp = out["act"], out["logp"]
     err = max((logp - ref_logp).abs().max().item(), (act - ref_act).abs().max().item())
 
     # positions run from one stamp of the loop's top to the next; the split

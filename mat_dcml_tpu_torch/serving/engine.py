@@ -8,6 +8,11 @@ observation ``state (A, state_dim)``, ``obs (A, obs_dim)``,
 ``available_actions (A, action_dim)``; the engine takes host numpy stacked
 to a bucket's size and returns host numpy actions ``(b, A, act_out_dim)`` and
 log-probs ``(b, A, act_prob_dim)``, for any of the four action families.
+
+``serve_dtype="bf16"`` serves a bf16 trunk as the JAX engine does: at install
+every f32 parameter but the heads' and ``log_std`` is cast to bf16, and the
+decode runs with ``MATConfig(dtype="bfloat16")`` (bf16 caches, the decode
+kernels' bf16 legs on the card).
 """
 
 from __future__ import annotations
@@ -35,7 +40,8 @@ class EngineConfig:
     the discrete families, one a position for the continuous ones) or
     ``"stride"`` (discrete families only; the reference's
     block-commit approximation, ``stride`` agents a pass; benchmark-protocol
-    parity only)."""
+    parity only).  ``serve_dtype``: ``"f32"``, or ``"bf16"`` for a bf16
+    trunk (heads and ``log_std`` stay f32)."""
 
     buckets: Tuple[int, ...] = (1, 8, 32, 128)
     decode_mode: str = "cached"
@@ -55,10 +61,18 @@ class EngineConfig:
             )
         if self.serve_dtype not in ("f32", "bf16"):
             raise ValueError(f"serve_dtype must be 'f32' or 'bf16', got {self.serve_dtype!r}")
-        if self.serve_dtype == "bf16":
-            raise NotImplementedError(
-                "serve_dtype 'bf16' is not ported yet (ROADMAP.md queue 1, item 11)"
-            )
+
+
+def serve_cast(model: MultiAgentTransformer) -> MultiAgentTransformer:
+    """The JAX engine's bf16 install cast (``serving/engine.py``
+    ``_prepare_params``), in place: every f32 parameter becomes bf16 except
+    those under a ``head`` and ``log_std``, which feed distributions and
+    stay f32.  Returns ``model``."""
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if "head" not in parts and "log_std" not in parts and p.dtype == torch.float32:
+            p.data = p.data.to(torch.bfloat16)
+    return model
 
 
 class DecodeEngine:
@@ -83,14 +97,19 @@ class DecodeEngine:
         self.telemetry = telemetry if telemetry is not None else Telemetry()
         self.log = log_fn
         self.device = resolve_device(device)
+        self._bf16 = engine_cfg.serve_dtype == "bf16"
+        # the config the decode runs with: a bf16 trunk for serve_dtype "bf16"
+        self.serve_cfg = dataclasses.replace(cfg, dtype="bfloat16") if self._bf16 else cfg
         self.dispatch_counts: Dict[int, int] = {b: 0 for b in engine_cfg.buckets}
         self._model = self._build_model(params)
         self._zero_batches: Dict[int, Tuple[np.ndarray, ...]] = {}
         self._steady = False
 
     def _build_model(self, params) -> MultiAgentTransformer:
-        model = MultiAgentTransformer(self.cfg, device=self.device)
+        model = MultiAgentTransformer(self.serve_cfg, device=self.device)
         model.load_state_dict({k: torch.as_tensor(v) for k, v in params.items()})
+        if self._bf16:
+            serve_cast(model)
         return model.eval().requires_grad_(False)
 
     def _zero_batch(self, b: int):
@@ -121,14 +140,15 @@ class DecodeEngine:
         self._steady = True
         tel = self.telemetry
         tel.gauge("serving_buckets", float(len(self.engine_cfg.buckets)))
-        tel.gauge("serving_dtype_bits", 32.0)
-        c = self.cfg
+        tel.gauge("serving_dtype_bits", 16.0 if self._bf16 else 32.0)
+        c = self.serve_cfg
         if self.engine_cfg.decode_mode == "stride":
             return   # teacher-forced passes: no K/V cache
         for b in self.engine_cfg.buckets:
             # the scan decode's workspace holds the same K/V as the packed cache
             tel.gauge(f"decode_cache_bytes_b{b}",
-                      float(packed_cache_bytes(c.n_block, b, c.n_agent, c.n_embd)))
+                      float(packed_cache_bytes(c.n_block, b, c.n_agent, c.n_embd,
+                                               dtype=c.trunk_dtype)))
 
     def install_params(self, params, warm: bool = True) -> None:
         """Publish-then-swap: the new weights are loaded next to the live

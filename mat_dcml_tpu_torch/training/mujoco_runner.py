@@ -33,7 +33,7 @@ def build_policy(run: RunConfig, env, device=None,
     cfg = MATConfig(
         n_agent=env.n_agents, obs_dim=env.obs_dim, state_dim=env.share_obs_dim,
         action_dim=env.action_dim, n_block=run.n_block, n_embd=run.n_embd, n_head=run.n_head,
-        action_type=CONTINUOUS if continuous else DISCRETE,
+        action_type=CONTINUOUS if continuous else DISCRETE, dtype=run.model_dtype,
     )
     return TransformerPolicy(cfg, decode_mode=run.decode_mode, device=device, generator=generator)
 

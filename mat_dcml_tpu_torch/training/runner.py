@@ -27,7 +27,7 @@ import torch
 from mat_dcml_tpu_torch.config import RunConfig
 from mat_dcml_tpu_torch.device import resolve_device
 from mat_dcml_tpu_torch.envs.dcml.env import DCMLEnv, DCMLEnvConfig
-from mat_dcml_tpu_torch.models.mat import SEMI_DISCRETE, MATConfig
+from mat_dcml_tpu_torch.models.mat import SEMI_DISCRETE, TRUNK_DTYPES, MATConfig
 from mat_dcml_tpu_torch.models.policy import TransformerPolicy
 from mat_dcml_tpu_torch.training.ppo import MATTrainer, PPOConfig
 from mat_dcml_tpu_torch.training.rollout import RolloutCollector
@@ -40,10 +40,9 @@ def check_run(run: RunConfig) -> None:
             f"algorithm_name={run.algorithm_name!r} is not ported yet; the port trains 'mat' "
             "(ROADMAP.md queue 1, item 9)"
         )
-    if run.model_dtype != "float32":
-        raise NotImplementedError(
-            f"model_dtype={run.model_dtype!r}: the port's trunk is f32 (ROADMAP.md queue 1, item 3)"
-        )
+    if run.model_dtype not in TRUNK_DTYPES:
+        raise ValueError(f"model_dtype must be one of {tuple(TRUNK_DTYPES)}, "
+                         f"got {run.model_dtype!r}")
     if run.decode_mode == "stride":
         # stride is the deterministic benchmark-protocol decode; it cannot
         # sample, so it cannot collect rollouts
@@ -60,6 +59,7 @@ def build_mat_policy(run: RunConfig, env: DCMLEnv, device=None,
         n_agent=env.n_agents, obs_dim=env.obs_dim, state_dim=env.share_obs_dim,
         action_dim=env.action_dim, n_block=run.n_block, n_embd=run.n_embd, n_head=run.n_head,
         action_type=SEMI_DISCRETE, semi_index=-env.cfg.consts.extra_agent,
+        dtype=run.model_dtype,
     )
     return TransformerPolicy(cfg, decode_mode=run.decode_mode, device=device, generator=generator)
 

@@ -26,6 +26,19 @@ families at the multi-agent MuJoCo width (manyagent_ant 10x2: A = 10, action
 caches), f32, O(1) weights: logits and every cache atol 2e-5 (summation
 order only).  The cache-layout probe's kernels against their
 plain versions, atol 1e-5.
+
+The decode kernels' bf16 legs (a bf16 trunk: ``MATConfig(dtype="bfloat16")``)
+against the plain twins, which round at the same points: on chip at the
+recipe's widths and others, in device memory (n_embd 256), and at n_embd 128,
+which fits on chip in bf16 only.  Both sides sum in f32 in different orders,
+so a value near a bf16 rounding boundary may round the other way on one
+side and move what follows by a bf16 ulp: the whole decode's log-probs (and
+the tail's action) within ``BF16_DECODE_TOL``, worker actions equal except
+past a top-2 margin below ``BF16_NEAR_TIE``; the decode step's logits within
+``BF16_STEP_TOL`` and its caches within ``BF16_CACHE_TOL`` (a few bf16 ulps
+of values of O(1)).
+A bf16 call launches the bf16 leg: it never reaches the plain twin, and a
+mixed-dtype or f16 call raises.
 """
 
 import dataclasses
@@ -321,7 +334,7 @@ def _dcml_model(device, seed=0, cfg=DCML):
 def _decode_inputs(device, B, noise, masked, seed, cfg=DCML):
     A, adim = cfg.n_agent, cfg.action_dim
     g = torch.Generator(device=device).manual_seed(seed)
-    rep = torch.randn(B, A, cfg.n_embd, generator=g, device=device)
+    rep = torch.randn(B, A, cfg.n_embd, generator=g, device=device).to(cfg.trunk_dtype)
     gumbel = gumbel_noise((B, A, adim), g, device) if noise else torch.zeros(B, A, adim,
                                                                             device=device)
     normal = torch.randn(B, 1, adim, generator=g, device=device) * float(noise)
@@ -332,10 +345,11 @@ def _decode_inputs(device, B, noise, masked, seed, cfg=DCML):
     return rep, gumbel, normal, avail
 
 
-def _check_decodes_agree(act, logp, ref_act, ref_logp, scores, nd):
+def _check_decodes_agree(act, logp, ref_act, ref_logp, scores, nd, tol=DECODE_TOL,
+                         near_tie=NEAR_TIE):
     """Row by row: worker actions equal up to the first difference, which is
     allowed only at a near-tie of the reference's scores; log-probs (and the
-    tail's action where the row never diverged) within DECODE_TOL before it."""
+    tail's action where the row never diverged) within ``tol`` before it."""
     act, logp, ref_act, ref_logp, scores = (x.cpu() for x in (act, logp, ref_act, ref_logp,
                                                                scores))
     for b in range(act.shape[0]):
@@ -343,11 +357,11 @@ def _check_decodes_agree(act, logp, ref_act, ref_logp, scores, nd):
         end = act.shape[1] if diff.numel() == 0 else int(diff[0])
         if diff.numel():
             top2 = scores[b, end].sort().values[-2:]
-            assert top2[1] - top2[0] < NEAR_TIE, f"row {b}: action differs at agent {end}"
+            assert top2[1] - top2[0] < near_tie, f"row {b}: action differs at agent {end}"
         else:
-            assert (act[b, nd:] - ref_act[b, nd:]).abs().max() <= DECODE_TOL, f"row {b}: tail"
+            assert (act[b, nd:] - ref_act[b, nd:]).abs().max() <= tol, f"row {b}: tail"
         if end:
-            assert (logp[b, :end] - ref_logp[b, :end]).abs().max() <= DECODE_TOL, f"row {b}"
+            assert (logp[b, :end] - ref_logp[b, :end]).abs().max() <= tol, f"row {b}"
 
 
 def _ar_decode_against_plain(device, cfg, B, noise, masked, seed, on_chip, recipe=None):
@@ -358,7 +372,7 @@ def _ar_decode_against_plain(device, cfg, B, noise, masked, seed, on_chip, recip
     rep, gumbel, normal, avail = _decode_inputs(device, B, noise, masked, seed=seed, cfg=cfg)
     kw = dict(n_head=cfg.n_head, adim=cfg.action_dim, nd=cfg.n_discrete_agents)
     plan = ard.kernel_plan(B, cfg.n_agent, n_embd=cfg.n_embd, n_head=cfg.n_head,
-                           n_block=cfg.n_block, adim=cfg.action_dim)
+                           n_block=cfg.n_block, adim=cfg.action_dim, dtype=cfg.trunk_dtype)
     assert plan.on_chip == on_chip
     assert recipe is None or plan.recipe == recipe
     before = ard.launches
@@ -369,7 +383,10 @@ def _ar_decode_against_plain(device, cfg, B, noise, masked, seed, on_chip, recip
     assert torch.isfinite(act).all() and torch.isfinite(logp).all()
     ref = ard.ar_decode_plain(weights, rep, gumbel, normal, avail, return_scores=True, **kw)
     assert ard.launches == before + 1
-    _check_decodes_agree(act, logp, *ref, cfg.n_discrete_agents)
+    bf16 = cfg.dtype == "bfloat16"
+    _check_decodes_agree(act, logp, *ref, cfg.n_discrete_agents,
+                         tol=BF16_DECODE_TOL if bf16 else DECODE_TOL,
+                         near_tie=BF16_NEAR_TIE if bf16 else NEAR_TIE)
 
 
 @pytest.mark.parametrize("masked", [True, False], ids=["avail", "avail_none"])
@@ -414,11 +431,15 @@ def test_ar_decode_rejects_what_it_cannot_run(cuda):
     weights = ard.pack_ar_decode_weights(_dcml_model(cuda))
     rep, gumbel, normal, avail = _decode_inputs(cuda, 2, True, True, seed=0)
     kw = dict(n_head=DCML.n_head, adim=DCML.action_dim, nd=DCML.n_discrete_agents)
-    with pytest.raises(ValueError, match="f32 only"):
+    # one trunk dtype: a bf16 obs_rep with f32 weights, or the other way
+    # round, or a bf16 head, is a mixed call
+    with pytest.raises(ValueError, match="trunk's matrices"):
         ard.fused_ar_decode(weights, rep.bfloat16(), gumbel, normal, avail, **kw)
-    with pytest.raises(ValueError, match="f32 only"):
+    with pytest.raises(ValueError, match="trunk's matrices"):
         bf16 = ard.ARDecodeWeights(*(t.bfloat16() for t in weights))
         ard.fused_ar_decode(bf16, rep, gumbel, normal, avail, **kw)
+    with pytest.raises(ValueError, match="f32 or a bf16 trunk"):
+        ard.fused_ar_decode(weights, rep.half(), gumbel, normal, avail, **kw)
     with pytest.raises(ValueError, match="one device"):
         ard.fused_ar_decode(weights, rep, gumbel.cpu(), normal, avail, **kw)
     with pytest.raises(ValueError, match="one device"):
@@ -455,6 +476,13 @@ def test_scan_serve_decode_launches_the_kernel_once(cuda):
 
 
 STEP_TOL = 2e-5
+# bf16 kernel vs plain (measured on an H100, B 1-128, n_embd 64-256: log-probs
+# and the tail's action <= 0.03, near-tie margins <= 0.013, logits <= 0.02,
+# caches <= 0.031, a bf16 ulp or two of values in [2, 4))
+BF16_DECODE_TOL = 0.1
+BF16_NEAR_TIE = 5e-2
+BF16_STEP_TOL = 5e-2
+BF16_CACHE_TOL = 2.0**-4
 
 
 def _mujoco_cfg(family, n_agent):
@@ -467,20 +495,20 @@ def _decode_step_against_plain(device, cfg, B, i, position_major, on_chip, seed,
     """One kernel position against the plain twin on batch-major caches
     (``decode_caches``) or position-major ones: logits and every cache; the
     plan's path and, where given, its kernel (the recipe's or the generic)."""
-    A = cfg.n_agent
+    A, dt = cfg.n_agent, cfg.trunk_dtype
     weights = dst.pack_decode_weights(_dcml_model(device, seed=seed, cfg=cfg))
     plan = dst.kernel_plan(B, A, cfg.action_input_dim, n_embd=cfg.n_embd, n_head=cfg.n_head,
-                           n_block=cfg.n_block, adim=cfg.action_dim)
+                           n_block=cfg.n_block, adim=cfg.action_dim, dtype=dt)
     assert plan.on_chip == on_chip
     assert recipe is None or plan.recipe == recipe
     g = torch.Generator(device=device).manual_seed(B)
     if position_major:
-        caches = torch.empty(4 * cfg.n_block, A, B, cfg.n_embd, device=device)
+        caches = torch.empty(4 * cfg.n_block, A, B, cfg.n_embd, device=device, dtype=dt)
     else:
-        caches = dst.decode_caches(cfg.n_block, A, B, cfg.n_embd, device)
+        caches = dst.decode_caches(cfg.n_block, A, B, cfg.n_embd, device, dtype=dt)
     caches.copy_(torch.randn(caches.shape, generator=g, device=device))
-    x_in = torch.randn(B, cfg.action_input_dim, generator=g, device=device)
-    rep = torch.randn(B, A, cfg.n_embd, generator=g, device=device)
+    x_in = torch.randn(B, cfg.action_input_dim, generator=g, device=device).to(dt)
+    rep = torch.randn(B, A, cfg.n_embd, generator=g, device=device).to(dt)
     mine, ref = caches.clone(), caches.clone()
     assert mine.stride() == caches.stride()
     before = dst.launches
@@ -491,9 +519,15 @@ def _decode_step_against_plain(device, cfg, B, i, position_major, on_chip, seed,
     want = dst.decode_step_plain(weights, x_in, rep[:, i], ref, i, n_head=cfg.n_head,
                                  adim=cfg.action_dim)
     assert dst.launches == before + 1
-    assert out.shape == (B, cfg.action_dim)
-    assert (out - want).abs().max() <= STEP_TOL
-    assert (mine - ref).abs().max() <= STEP_TOL
+    assert out.shape == (B, cfg.action_dim) and out.dtype == torch.float32
+    if dt == torch.bfloat16:
+        err = (out - want).abs().max().item()
+        cerr = (mine.float() - ref.float()).abs().max().item()
+        assert err <= BF16_STEP_TOL, f"logits {err}"
+        assert cerr <= BF16_CACHE_TOL, f"caches {cerr}"
+    else:
+        assert (out - want).abs().max() <= STEP_TOL
+        assert (mine - ref).abs().max() <= STEP_TOL
     assert torch.equal(mine[:, :i], caches[:, :i])
     assert torch.equal(mine[:, i + 1:], caches[:, i + 1:])
 
@@ -539,8 +573,14 @@ def test_decode_step_rejects_what_it_cannot_run(cuda):
     x_in = torch.zeros(2, cfg.action_input_dim, device=cuda)
     rep = torch.zeros(2, cfg.n_embd, device=cuda)
     kw = dict(n_head=cfg.n_head, adim=cfg.action_dim)
-    with pytest.raises(ValueError, match="f32 only"):
+    # one trunk dtype for x_in, rep, the caches and the trunk's matrices
+    with pytest.raises(ValueError, match="the caches and the trunk's matrices"):
         dst.fused_decode_step(weights, x_in.bfloat16(), rep, caches, 0, **kw)
+    with pytest.raises(ValueError, match="the caches and the trunk's matrices"):
+        dst.fused_decode_step(weights, x_in.bfloat16(), rep.bfloat16(), caches.bfloat16(), 0,
+                              **kw)
+    with pytest.raises(ValueError, match="f32 or a bf16 trunk"):
+        dst.fused_decode_step(weights, x_in.half(), rep.half(), caches.half(), 0, **kw)
     with pytest.raises(ValueError, match="one device"):
         dst.fused_decode_step(weights, x_in.cpu(), rep, caches, 0, **kw)
     with pytest.raises(ValueError, match="at most .* heads"):
@@ -595,3 +635,123 @@ def test_decode_stage_probe_matches_the_kernel(cuda):
     assert st["cluster_barriers_per_position"] == ard.kernel_plan(
         8, DCML.n_agent, n_embd=64, n_head=2, n_block=2, adim=DCML.action_dim).barriers
     assert st["cycles_per_position"] == pytest.approx(sum(st["split_cycles"].values()))
+
+
+# ------------------------------------------------------- the bf16 legs
+
+BF16 = dataclasses.replace(DCML, dtype="bfloat16")
+
+
+@pytest.mark.parametrize("noise", [False, True], ids=["deterministic", "noise"])
+@pytest.mark.parametrize("B", [1, 3, 8, 9, 17, 128])
+def test_ar_decode_bf16_kernel_matches_plain(cuda, B, noise):
+    # the recipe's widths, bf16: every optional matrix local at 2 and at 8
+    # rows a cluster
+    _ar_decode_against_plain(cuda, BF16, B, noise, True, seed=B + 100, on_chip=True, recipe=True)
+
+
+@pytest.mark.parametrize("B", [3, 40])
+@pytest.mark.parametrize("width", [dict(n_head=4), dict(n_embd=32), dict(n_embd=128)],
+                         ids=["4_heads", "n_embd_32", "n_embd_128"])
+def test_ar_decode_bf16_generic_kernel_on_chip(cuda, width, B):
+    # off the recipe's widths: the generic kernel; n_embd 128 fits on chip in
+    # bf16 at 2 rows a cluster (its f32 weights do not), and takes device
+    # memory at 8
+    cfg = dataclasses.replace(BF16, **width)
+    on_chip = cfg.n_embd < 128 or B <= 32
+    _ar_decode_against_plain(cuda, cfg, B, True, True, seed=B + 111, on_chip=on_chip,
+                             recipe=False)
+
+
+@pytest.mark.parametrize("B", [1, 9, 17])
+def test_ar_decode_bf16_weights_in_device_memory(cuda, B):
+    cfg = dataclasses.replace(BF16, n_embd=256)
+    _ar_decode_against_plain(cuda, cfg, B, True, True, seed=B + 107, on_chip=False)
+
+
+@pytest.mark.parametrize("B", [3, 9])
+@pytest.mark.parametrize("A", [1, 2, 10])
+def test_ar_decode_bf16_short_decodes(cuda, A, B):
+    cfg = dataclasses.replace(BF16, n_agent=A)
+    _ar_decode_against_plain(cuda, cfg, B, True, True, seed=A * 37 + B, on_chip=True)
+
+
+@pytest.mark.parametrize("i_at", ["first", "last"])
+@pytest.mark.parametrize("B", [1, 3, 8, 9, 17, 128])
+@pytest.mark.parametrize("family", ["continuous", "available_continuous"])
+def test_decode_step_bf16_kernel_matches_plain(cuda, family, B, i_at):
+    cfg = dataclasses.replace(_mujoco_cfg(family, 10), dtype="bfloat16")
+    i = 0 if i_at == "first" else 9
+    _decode_step_against_plain(cuda, cfg, B, i, False, True, seed=B + 200, recipe=True)
+
+
+@pytest.mark.parametrize("B", [3, 9])
+@pytest.mark.parametrize("layout", ["batch_major", "position_major"])
+@pytest.mark.parametrize("n_embd", [64, 128, 256], ids=["on_chip", "on_chip_128", "device_memory"])
+def test_decode_step_bf16_layouts_and_paths(cuda, n_embd, layout, B):
+    cfg = dataclasses.replace(_mujoco_cfg("continuous", 10), n_embd=n_embd, dtype="bfloat16")
+    _decode_step_against_plain(cuda, cfg, B, 9, layout == "position_major", n_embd < 256,
+                               seed=B + n_embd)
+
+
+@pytest.mark.parametrize("B", [3, 40])
+@pytest.mark.parametrize("width", [dict(n_head=4), dict(n_embd=32)], ids=["4_heads", "n_embd_32"])
+def test_decode_step_bf16_generic_kernel_on_chip(cuda, width, B):
+    cfg = dataclasses.replace(_mujoco_cfg("continuous", 101), dtype="bfloat16", **width)
+    _decode_step_against_plain(cuda, cfg, B, 50, False, True, seed=B + 300, recipe=False)
+
+
+def test_bf16_calls_never_reach_the_plain_twins(cuda, monkeypatch):
+    # a bf16 CUDA call launches the bf16 leg: no cast to f32, no plain twin
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA call reached the plain twin")
+
+    monkeypatch.setattr(ard, "ar_decode_plain", refuse)
+    monkeypatch.setattr(dst, "decode_step_plain", refuse)
+    weights = ard.pack_ar_decode_weights(_dcml_model(cuda, cfg=BF16))
+    assert weights.block_qkvp1_w.dtype == torch.bfloat16
+    assert weights.head_w1.dtype == torch.float32
+    rep, gumbel, normal, avail = _decode_inputs(cuda, 8, True, True, seed=5, cfg=BF16)
+    before = ard.launches
+    act, logp = ard.fused_ar_decode(weights, rep, gumbel, normal, avail, n_head=2, adim=2,
+                                    nd=BF16.n_discrete_agents)
+    torch.cuda.synchronize()
+    assert ard.launches == before + 1 and act.dtype == logp.dtype == torch.float32
+    assert torch.isfinite(logp).all()
+    cfg = dataclasses.replace(_mujoco_cfg("continuous", 10), dtype="bfloat16")
+    sw = dst.pack_decode_weights(_dcml_model(cuda, cfg=cfg))
+    caches = dst.decode_caches(2, 10, 8, 64, cuda, dtype=torch.bfloat16)
+    before = dst.launches
+    out = dst.fused_decode_step(sw, torch.zeros(8, 8, device=cuda, dtype=torch.bfloat16),
+                                torch.ones(8, 64, device=cuda, dtype=torch.bfloat16), caches, 0,
+                                n_head=2, adim=8)
+    torch.cuda.synchronize()
+    assert dst.launches == before + 1 and out.dtype == torch.float32
+    assert caches[:, 0].abs().sum() > 0 and (caches[:, 1:] == 0).all()
+
+
+@pytest.mark.parametrize("mode", ["cached", "scan"])
+@pytest.mark.parametrize("family", ["semi_discrete", "continuous"])
+def test_bf16_serve_decode_runs_the_bf16_legs(cuda, family, mode):
+    # the served decode of a bf16 model: the encoder and the cached decode's
+    # attentions in bf16, or the scan decode's kernel, bf16 caches
+    cfg = BF16 if family == "semi_discrete" else dataclasses.replace(
+        _mujoco_cfg("continuous", 10), dtype="bfloat16")
+    model = _dcml_model(cuda, cfg=cfg)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    state = torch.randn(4, cfg.n_agent, cfg.state_dim, generator=g, device=cuda)
+    obs = torch.randn(4, cfg.n_agent, cfg.obs_dim, generator=g, device=cuda)
+    counts = (cuda_attention.launches, ard.launches, dst.launches)
+    v, res = serve_decode(model, state, obs, None, deterministic=False, mode=mode, device=cuda,
+                          generator=g)
+    torch.cuda.synchronize()
+    got = (cuda_attention.launches - counts[0], ard.launches - counts[1],
+           dst.launches - counts[2])
+    nb, A = cfg.n_block, cfg.n_agent
+    if mode == "cached":
+        want = (nb + 2 * nb * A, 0, 0)
+    else:
+        want = (nb, 1, 0) if family == "semi_discrete" else (nb, 0, A)
+    assert got == want
+    assert v.dtype == res.log_prob.dtype == torch.float32
+    assert torch.isfinite(res.log_prob).all() and torch.isfinite(v).all()

@@ -112,7 +112,7 @@ def test_install_params_swaps_weights(setup):
 @pytest.mark.parametrize("kw,err", [
     (dict(buckets=(4, 1)), ValueError),
     (dict(decode_mode="spec"), NotImplementedError),
-    (dict(serve_dtype="bf16"), NotImplementedError),
+    (dict(serve_dtype="f16"), ValueError),     # f32 and bf16 are the serve dtypes
 ])
 def test_engine_config_rejects(kw, err):
     with pytest.raises(err):
