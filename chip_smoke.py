@@ -62,9 +62,25 @@ Phases, each printed on its own line and each fatal on failure:
    against the CPU port; then one bf16 scan iteration;
 8. the cache-layout probe (probes/cache_layout.py): K/V store and attention
    in position-major against batch-major caches, and two row softmaxes,
-   each checked against plain PyTorch and timed.
+   each checked against plain PyTorch and timed;
+9. checkpoint, resume, export, evaluate: DCMLRunner at the recipe's full
+   width and iteration (E = 8, T = 50, 15 x 4 minibatches; scan decode,
+   f32, a checkpoint every episode): (a) two uninterrupted 3-episode runs
+   from one seed, compared bit for bit (is the card deterministic?); (b) 2
+   episodes, SIGTERM, the emergency checkpoint and exit 75, then
+   resume="auto" for the last episode, which must equal the uninterrupted
+   run (bit for bit where (a) found the card deterministic, else within
+   (a)'s own spread), launches counted exactly; (c) step
+   1 restored into a fresh runner, bit for bit, and a planted corrupt step
+   quarantined; (d) the export served by DecodeEngine.from_export, equal to
+   an engine on the in-memory weights and within 1e-4 of the CPU port; (e)
+   DCMLRunner.evaluate, 100 steps, scan (one ar_decode launch a step and
+   the warm-up) and stride 10, and act_stride card vs CPU; (f) the sweep
+   (sweep_dcml) from the export on Sample_1, 2 settings x 100 steps at
+   stride 10.  Its times print beside the card's name and power limit.
 
-The bf16 legs' readings are a JSON line ``{"bf16_legs": {...}}``; the last
+The bf16 legs' readings are a JSON line ``{"bf16_legs": {...}}``, phase 9's
+``{"checkpoint_phase": {...}}``; the last
 two lines of standard output are a JSON object describing each kernel and
 the result line ``{"ok": true, "device": {...}}``.  Without a
 CUDA device it exits 2 and prints no result.
@@ -169,6 +185,15 @@ TRAIN_ITERS = 1
 # advantages that cancels to near 0)
 UPDATE_TOL_FRACTION = 0.01
 METRIC_RTOL = 1e-4
+# checkpoint, resume, export, evaluate (phase 9): the recipe's iterations,
+# 3 episodes a run; where the card is not bit-deterministic, the resumed run
+# may differ from the uninterrupted one by no more than two uninterrupted
+# runs differ from each other
+RESUME_EPISODES = 3
+EVAL_STEPS = 100
+EVAL_STRIDE = 10
+SWEEP_SETTINGS = 2
+SWEEP_STEPS = 100
 
 
 def say(msg: str) -> None:
@@ -1769,6 +1794,346 @@ def phase8_probe(torch):
     return rows, verdicts, cache_layout.launches
 
 
+def _state_diff(torch, a, b, what):
+    """``(bit-for-bit equal, max |a - b| over the floating tensors)`` of two
+    training states (nested dicts of tensors and plain values)."""
+    equal, worst = True, 0.0
+
+    def walk(x, y, path):
+        nonlocal equal, worst
+        if isinstance(x, dict):
+            if x.keys() != y.keys():
+                raise AssertionError(f"{what}: keys differ at {path}")
+            for k in x:
+                walk(x[k], y[k], f"{path}/{k}")
+        elif isinstance(x, (list, tuple)):
+            for i, (u, v) in enumerate(zip(x, y, strict=True)):
+                walk(u, v, f"{path}/{i}")
+        elif isinstance(x, torch.Tensor):
+            u, v = x.detach().cpu(), y.detach().cpu()
+            if u.shape != v.shape or u.dtype != v.dtype:
+                raise AssertionError(f"{what}: {path} {u.shape}/{u.dtype} vs {v.shape}/{v.dtype}")
+            if not torch.equal(u, v):
+                equal = False
+                if u.is_floating_point():
+                    worst = max(worst, float((u - v).abs().max()))
+        elif x != y:
+            raise AssertionError(f"{what}: {path} {x!r} != {y!r}")
+
+    walk(a, b, "")
+    return equal, worst
+
+
+def _stride_passes(cfg, stride):
+    """Teacher-forced decoder passes of one stride decode: agent 0, the
+    blocks of ``stride`` discrete agents, then the tail one by one."""
+    nd = cfg.n_discrete_agents
+    return 1 + -(-(nd - 1) // stride) + (cfg.n_agent - nd)
+
+
+def phase9_checkpoint(torch, card):
+    """Checkpoint, resume, export, evaluate at full DCML width with the
+    recipe (E 8, T 50, 15 x 4 minibatches), scan decode, f32, a checkpoint
+    every episode.  Returns ``{path: (attention_fwd, attention_bwd,
+    ar_decode, decode_step) launches}`` for the new paths and the phase's
+    readings."""
+    import math
+    import os
+    import shutil
+    import signal
+    import statistics
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from mat_dcml_tpu_torch import export_policy as export_cli
+    from mat_dcml_tpu_torch import sweep_dcml
+    from mat_dcml_tpu_torch.config import RunConfig
+    from mat_dcml_tpu_torch.models.policy import TransformerPolicy
+    from mat_dcml_tpu_torch.ops import ar_decode as ard
+    from mat_dcml_tpu_torch.ops import cuda_attention as ca
+    from mat_dcml_tpu_torch.ops import decode_step as dst
+    from mat_dcml_tpu_torch.serving.engine import DecodeEngine, EngineConfig
+    from mat_dcml_tpu_torch.training import checkpoint as ckpt
+    from mat_dcml_tpu_torch.training.ppo import PPOConfig
+    from mat_dcml_tpu_torch.training.resilience import EXIT_PREEMPTED, to_host
+    from mat_dcml_tpu_torch.training.runner import DCMLRunner
+
+    tag = "[phase 9]"
+    ppo = PPOConfig()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    blocking_s, write_s, kept = [], [], {}
+
+    def runner(name, log=None, **kw):
+        run = RunConfig(seed=SEED, decode_mode="scan", log_interval=1, save_interval=1,
+                        num_env_steps=RESUME_EPISODES * 50 * 8, run_dir=str(root / name), **kw)
+        return DCMLRunner(run, ppo, log_fn=log or (lambda m: say(f"{tag} {name}: {m}")))
+
+    def timed_saves(r):
+        """Record each save's blocking time, each write's time, and a host
+        copy of the state saved at episode 1."""
+        mgr, save, write = r.ckpt, r.ckpt.save, r.ckpt._write_step
+
+        def timed_save(step, state, blocking=False):
+            save(step, state, blocking)
+            blocking_s.append(mgr.last_blocking_s)
+            if step == 1:
+                kept[1] = to_host(state)
+
+        def timed_write(step, snapshot):
+            t0 = time.perf_counter()
+            write(step, snapshot)
+            write_s.append(time.perf_counter() - t0)
+
+        mgr.save, mgr._write_step = timed_save, timed_write
+
+    def final(r, state):
+        torch.cuda.synchronize()
+        return {**r.trainer.state_dict(state), "generator": r.generator.get_state()}
+
+    def launches():
+        return ca.launches, ca.bwd_launches, ard.launches, dst.launches
+
+    def zero():
+        ca.launches = ca.bwd_launches = ard.launches = dst.launches = 0
+
+    try:
+        # (a) two uninterrupted runs from one seed
+        ref = runner("a1")
+        cfg = ref.policy.cfg
+        say(f"{tag} recipe: {cfg.n_agent} agents, n_embd {cfg.n_embd}, {cfg.n_block} blocks, "
+            f"{cfg.n_head} heads, E {ref.run_cfg.n_rollout_threads}, T "
+            f"{ref.run_cfg.episode_length}, {ppo.ppo_epoch} epochs x {ppo.num_mini_batch} "
+            f"minibatches (uncut), scan decode, f32, {RESUME_EPISODES} episodes, a checkpoint "
+            "every episode")
+        timed_saves(ref)
+        t0 = time.perf_counter()
+        ref_state, _ = ref.train_loop()
+        ref_final = final(ref, ref_state)
+        say(f"{tag} (a) run 1: {RESUME_EPISODES} episodes in {time.perf_counter() - t0:.2f}s")
+        twin = runner("a2")
+        twin_state, _ = twin.train_loop()
+        deterministic, spread = _state_diff(torch, final(twin, twin_state), ref_final, "(a)")
+        say(f"{tag} (a) two runs from seed {SEED}: every weight, Adam moment and step, the "
+            f"ValueNorm and the generator bit for bit equal: {deterministic} (max |diff| "
+            f"{spread:.3g})")
+
+        # (b) 2 episodes, SIGTERM after episode 1, emergency checkpoint, exit
+        # 75, then resume="auto" for the last episode
+        def sigterm_after_1(m):
+            say(f"{tag} b: {m}")
+            if m.startswith("ep 1 "):
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        torch.cuda.synchronize()
+        zero()
+        stopped = runner("b", log=sigterm_after_1)
+        try:
+            stopped.train_loop()
+            raise AssertionError("(b) the run did not stop on SIGTERM")
+        except SystemExit as e:
+            if e.code != EXIT_PREEMPTED:
+                raise AssertionError(f"(b) exit code {e.code}, expected {EXIT_PREEMPTED}")
+        if not stopped.stop.stop_requested or stopped.ckpt.all_steps() != [0, 1]:
+            raise AssertionError(f"(b) stop flag {stopped.stop.stop_requested}, steps "
+                                 f"{stopped.ckpt.all_steps()}")
+        t0 = time.perf_counter()
+        resumed = runner("b", resume="auto")
+        res_state, res_rollout = resumed.setup()
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        if resumed.start_episode != RESUME_EPISODES - 1:
+            raise AssertionError(f"(b) resumed at episode {resumed.start_episode}")
+        resumed.train_loop(train_state=res_state, rollout_state=res_rollout)
+        torch.cuda.synchronize()
+        paths = {"resume": launches()}
+        equal, diff = _state_diff(torch, final(resumed, res_state), ref_final, "(b)")
+        if deterministic and not equal:
+            raise AssertionError(f"(b) the resumed run differs from the uninterrupted one by "
+                                 f"{diff:.3g} on a deterministic card")
+        if not deterministic and not diff <= spread:
+            raise AssertionError(f"(b) resumed run differs by {diff:.3g} > (a)'s spread "
+                                 f"{spread:.3g}")
+        clock = ("fps", "step_time_collect", "step_time_train")
+        recs_equal = [{k: v for k, v in r.items() if k not in clock}
+                      for r in stopped.records + resumed.records] == [
+            {k: v for k, v in r.items() if k not in clock} for r in ref.records]
+        if deterministic and not recs_equal:
+            raise AssertionError("(b) the resumed run's metrics records differ")
+        it = RESUME_EPISODES
+        nb, T = cfg.n_block, ref.run_cfg.episode_length
+        _, _, upd_fwd, upd_bwd = _expected_launches(cfg, ref.run_cfg, ppo, 1)
+        want = (it * (T * nb + upd_fwd), it * upd_bwd, it * T, 0)
+        if paths["resume"] != want:
+            raise AssertionError(f"(b) launches {paths['resume']}, expected {want}")
+        say(f"{tag} (b) 2 episodes, SIGTERM, emergency checkpoint, exit {EXIT_PREEMPTED}, "
+            f"resume='auto' at episode {resumed.start_episode} (runner built and restored in "
+            f"{resume_s:.3f}s): "
+            f"equal to the uninterrupted run bit for bit: {equal} (max |diff| {diff:.3g}); "
+            f"metrics records (but their clock fields) equal: {recs_equal}; launches "
+            f"fwd/bwd/ar_decode/decode_step {paths['resume']}")
+
+        # (c) restore step 1 into a fresh runner; a planted corrupt step
+        fresh = runner("c")
+        t0 = time.perf_counter()
+        state = fresh.trainer.load_state_dict(fresh.trainer.init_state(),
+                                              ckpt.CheckpointManager(ref.ckpt.directory,
+                                                                     device="cuda").restore(1))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        equal, diff = _state_diff(torch, fresh.trainer.state_dict(state), kept[1], "(c)")
+        if not equal:
+            raise AssertionError(f"(c) restored step 1 differs from what was saved by {diff:.3g}")
+        models = twin.ckpt.directory
+        payload = models / str(RESUME_EPISODES - 1) / "state.pt"
+        data = bytearray(payload.read_bytes())
+        data[len(data) // 2] ^= 0xFF
+        payload.write_bytes(bytes(data))
+        step, _ = ckpt.CheckpointManager(models, device="cuda",
+                                         log=lambda m: say(f"{tag} c: {m}")).restore_latest_valid()
+        quarantined = [p.name for p in (models / "quarantine").iterdir()]
+        if step != RESUME_EPISODES - 2 or len(quarantined) != 1:
+            raise AssertionError(f"(c) planted fault: restored step {step}, quarantined "
+                                 f"{quarantined}")
+        say(f"{tag} (c) step 1 restored into a fresh runner in {restore_s:.3f}s: every tensor "
+            f"of the training state equal to what was saved, bit for bit; planted fault (a "
+            f"byte of step {RESUME_EPISODES - 1}'s payload flipped): quarantined "
+            f"{quarantined[0]}, restored step {step}")
+
+        # (d) export, serve the export on the card
+        out = root / "exports" / "gen1"
+        if export_cli.main(["--model_dir", str(ref.ckpt.directory), "--out", str(out)]) != 0:
+            raise AssertionError("(d) export failed")
+        ecfg = EngineConfig(buckets=(1, 8), decode_mode="scan")
+        quiet = lambda *_: None   # noqa: E731
+        eng = DecodeEngine.from_export(out, ecfg, log_fn=quiet)
+        live = DecodeEngine(ref.policy.model.state_dict(), cfg, ecfg, log_fn=quiet)
+        cpu_eng = DecodeEngine.from_export(out, ecfg, log_fn=quiet, device="cpu")
+        state_, obs_, avail_ = _requests(cfg, 8, seed=SEED + 9)
+        a, lp = eng.decode(state_, obs_, avail_)
+        b, lq = live.decode(state_, obs_, avail_)
+        if not (np.array_equal(a, b) and np.array_equal(lp, lq)):
+            raise AssertionError("(d) the export's engine differs from the in-memory weights'")
+        c_act, c_logp = cpu_eng.decode(state_, obs_, avail_)
+        scores = _teacher_scores(torch, cfg, ref.policy.model.state_dict(), state_, obs_,
+                                 avail_, c_act)
+        worst, flips = _agree(a[..., 0], lp[..., 0], c_act[..., 0], c_logp[..., 0], scores,
+                              cfg.n_discrete_agents, LOGP_ATOL_VS_CPU, "(d) export card vs CPU")
+        say(f"{tag} (d) export (generation {ckpt.read_manifest(out)['generation']}, space_meta "
+            f"{sorted(eng.space_meta)}) served by DecodeEngine.from_export on the card: bucket 8 "
+            f"scan equal bit for bit to the in-memory weights' engine; vs the port on the CPU "
+            f"max|logp diff| {worst:.3g} (tol {LOGP_ATOL_VS_CPU}), near-tie rows {flips}")
+
+        # (e) evaluate, scan and stride
+        torch.cuda.synchronize()
+        zero()
+        info_scan = ref.evaluate(n_steps=EVAL_STEPS)
+        torch.cuda.synchronize()
+        paths["eval_scan"] = launches()
+        want = ((EVAL_STEPS + 1) * nb, 0, EVAL_STEPS + 1, 0)
+        if paths["eval_scan"] != want:
+            raise AssertionError(f"(e) scan eval launches {paths['eval_scan']}, expected {want}")
+        zero()
+        info_stride = ref.evaluate(n_steps=EVAL_STEPS, stride=EVAL_STRIDE)
+        torch.cuda.synchronize()
+        paths["eval_stride"] = launches()
+        per_call = nb + _stride_passes(cfg, EVAL_STRIDE) * 2 * nb
+        want = ((EVAL_STEPS + 1) * per_call, 0, 0, 0)
+        if paths["eval_stride"] != want:
+            raise AssertionError(f"(e) stride eval launches {paths['eval_stride']}, "
+                                 f"expected {want}")
+        for name, info in (("scan", info_scan), ("stride", info_stride)):
+            if not all(math.isfinite(v) for v in info.values()):
+                raise AssertionError(f"(e) {name} eval metrics not finite: {info}")
+            say(f"{tag} (e) evaluate {name}, {EVAL_STEPS} steps: " + ", ".join(
+                f"{k} {v:.6g}" for k, v in info.items()))
+        env = ref.env
+        _, ts = env.reset(env.draw_reset(8, torch.Generator(device="cuda").manual_seed(SEED)))
+        with torch.no_grad():
+            card_out = ref.policy.act_stride(ts.share_obs, ts.obs, ts.available_actions,
+                                             stride=EVAL_STRIDE)
+        cpu_policy = TransformerPolicy(cfg, device="cpu")
+        cpu_policy.model.load_state_dict({k: v.cpu() for k, v in
+                                          ref.policy.model.state_dict().items()})
+        host = [x.cpu() for x in (ts.share_obs, ts.obs, ts.available_actions)]
+        with torch.no_grad():
+            cpu_out = cpu_policy.act_stride(*host, stride=EVAL_STRIDE)
+        c_act = cpu_out.action.numpy()
+        scores = _teacher_scores(torch, cfg, cpu_policy.model.state_dict(),
+                                 *(x.numpy() for x in host), c_act)
+        worst, flips = _agree(card_out.action.cpu().numpy()[..., 0],
+                              card_out.log_prob.cpu().numpy()[..., 0], c_act[..., 0],
+                              cpu_out.log_prob.numpy()[..., 0], scores, cfg.n_discrete_agents,
+                              LOGP_ATOL_VS_CPU, "(e) act_stride card vs CPU")
+        say(f"{tag} (e) act_stride (stride {EVAL_STRIDE}) on 8 env states, card vs the port on "
+            f"the CPU: max|logp diff| {worst:.3g} (tol {LOGP_ATOL_VS_CPU}), near-tie rows {flips}")
+
+        # (f) the sweep from the export
+        torch.cuda.synchronize()
+        zero()
+        records = sweep_dcml.main([
+            "--model_dir", str(out), "--n_iter", str(SWEEP_SETTINGS), "--n_steps",
+            str(SWEEP_STEPS), "--stride", str(EVAL_STRIDE), "--sample", "1",
+            "--out", str(root / "sweep")])
+        torch.cuda.synchronize()
+        paths["sweep"] = launches()
+        want = (SWEEP_SETTINGS * SWEEP_STEPS * per_call, 0, 0, 0)
+        if paths["sweep"] != want:
+            raise AssertionError(f"(f) sweep launches {paths['sweep']}, expected {want}")
+        with open(root / "sweep.npy", "rb") as f:
+            cts, pays = np.load(f), np.load(f)
+        if (cts.shape, pays.shape) != ((SWEEP_SETTINGS, 1),) * 2 or not (
+                np.isfinite(cts).all() and np.isfinite(pays).all()):
+            raise AssertionError(f"(f) sweep output {cts}, {pays}")
+        walls = [r["wall_s"] for r in records]
+        say(f"{tag} (f) sweep from the export on Sample_1: {SWEEP_SETTINGS} settings x "
+            f"{SWEEP_STEPS} steps at stride {EVAL_STRIDE}: ct {cts[:, 0].tolist()}, payment "
+            f"{pays[:, 0].tolist()}")
+
+        readings = {
+            "save_blocking_ms": [round(s * 1e3, 3) for s in blocking_s],
+            "save_write_ms": [round(s * 1e3, 3) for s in write_s],
+            "resume_setup_s": resume_s,
+            "restore_s": restore_s,
+            "eval_inference_sec_per_call_scan": info_scan["eval_inference_sec_per_call"],
+            "eval_inference_sec_per_call_stride": info_stride["eval_inference_sec_per_call"],
+            "sweep_wall_s_per_setting": walls,
+            "deterministic": deterministic,
+            "card": card,
+        }
+        say(f"{tag} times on {card}: save blocking (what the loop pays) median "
+            f"{statistics.median(blocking_s) * 1e3:.3f} ms, max {max(blocking_s) * 1e3:.3f} ms "
+            f"over {len(blocking_s)} saves; write median {statistics.median(write_s) * 1e3:.3f} "
+            f"ms, max {max(write_s) * 1e3:.3f} ms; restore {restore_s * 1e3:.3f} ms; "
+            f"eval_inference_sec_per_call scan {info_scan['eval_inference_sec_per_call']:.6f}, "
+            f"stride {info_stride['eval_inference_sec_per_call']:.6f}; sweep wall per setting "
+            + ", ".join(f"{w:.3f}s" for w in walls))
+        return paths, readings
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _teacher_scores(torch, cfg, params, state, obs, avail, act):
+    """The teacher-forced logits on the CPU under the actions ``act (B, A,
+    1)``, availability applied: the scores the near-tie check reads."""
+    import numpy as np
+
+    from mat_dcml_tpu_torch.models.mat import MultiAgentTransformer
+
+    B = act.shape[0]
+    model = MultiAgentTransformer(cfg, device="cpu")
+    model.load_state_dict({k: v.cpu() for k, v in params.items()})
+    sh = np.zeros((B, cfg.n_agent, cfg.action_input_dim), np.float32)
+    sh[:, 0, 0] = 1.0
+    idx = act[:, :-1, 0].astype(int).clip(0, cfg.action_dim - 1)
+    for i in range(1, cfg.n_agent):
+        sh[np.arange(B), i, 1 + idx[:, i - 1]] = 1.0
+    with torch.inference_mode():
+        _, _, logits = model(*(torch.as_tensor(np.asarray(x)) for x in (state, obs, sh)))
+    return np.where(np.asarray(avail) == 0, -1e10, logits.numpy())
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(BUDGET_S, exit=True)
     t_start = time.perf_counter()
@@ -1819,6 +2184,8 @@ def main() -> int:
     mj16, _ = phase7_mujoco_bf16(torch)
     say(f"[time] MuJoCo done at {time.perf_counter() - t_start:.1f}s")
     probe_rows, probe_verdicts, probe_launches = phase8_probe(torch)
+    ckpt_paths, ckpt_readings = phase9_checkpoint(torch, card)
+    say(f"[time] checkpoint phase done at {time.perf_counter() - t_start:.1f}s")
 
     dec = shapes["decode"]
     f32_err = max(e for (_, dt), e in errs.items() if dt == "float32")
@@ -1836,7 +2203,9 @@ def main() -> int:
                "training_mujoco_bf16_scan": mj16[:2] + (0, mj16[2])}
 
     def with16(paths, k):
-        return {**paths, **{name: n[k] for name, n in paths16.items()}}
+        """``paths`` with the bf16 paths' and phase 9's launches of kernel ``k``."""
+        return {**paths, **{name: n[k] for name, n in paths16.items()},
+                **{name: n[k] for name, n in ckpt_paths.items()}}
 
     fwd_paths = with16({"serving_cached": serve["cached"][0], "serving_scan": serve["scan"][0],
                         "training_cached": train_fwd, "training_scan": scan_fwd,
@@ -1955,6 +2324,7 @@ def main() -> int:
         "launches_by_path": paths16,
     }
     say(json.dumps({"bf16_legs": bf16_legs}))
+    say(json.dumps({"checkpoint_phase": ckpt_readings}))
     say(f"[done] {time.perf_counter() - t_start:.1f}s wall")
     say(card)   # as nvidia-smi gives it: name, power limit
     say(json.dumps({"kernels": [fwd_kernel, bwd_kernel, ar_kernel, step_kernel, probe_kernel]}))

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+from typing import Optional
 
 from mat_dcml_tpu_torch.training.ppo import PPOConfig
 
@@ -27,7 +28,21 @@ class RunConfig:
     num_env_steps: int = 1_000_000
     episode_length: int = 50
     log_interval: int = 5
+    # checkpoint every save_interval episodes and on the last (0 = never);
+    # evaluate every eval_interval episodes when use_eval (DCML only)
+    save_interval: int = 50
+    eval_interval: int = 25
+    use_eval: bool = False
     run_dir: str = "results"
+    # restore from this checkpoint directory (a run's models/)
+    model_dir: Optional[str] = None
+    # "strict": model_dir must hold a checkpoint; "auto": resume from
+    # model_dir or this run's own models/ when either holds one, else start
+    # fresh (training/runner.py::EpisodicRunner.setup)
+    resume: str = "strict"
+    # SIGTERM / SIGINT -> emergency checkpoint at the next episode boundary,
+    # then exit 75 (training/resilience.py)
+    graceful_stop: bool = True
     n_block: int = 2
     n_embd: int = 64
     n_head: int = 2
@@ -54,8 +69,12 @@ def _parse_bool(s: str) -> bool:
 def _add_dataclass_args(parser: argparse.ArgumentParser, dc) -> None:
     for f in dataclasses.fields(dc):
         default = getattr(dc, f.name)
-        kind = _parse_bool if isinstance(default, bool) else type(default)
-        parser.add_argument("--" + f.name, type=kind, default=default)
+        if isinstance(default, bool):
+            parser.add_argument("--" + f.name, type=_parse_bool, default=default)
+        elif default is None:
+            parser.add_argument("--" + f.name, default=None)
+        else:
+            parser.add_argument("--" + f.name, type=type(default), default=default)
 
 
 def parse_cli(argv=None) -> tuple[RunConfig, PPOConfig]:

@@ -1,10 +1,24 @@
 """The DCML worker-selection environment, batched over E envs on one device.
 
-Port of ``mat_dcml_tpu/envs/dcml/env.py::DCMLEnv`` for the training recipe:
-non-Shannon rates, no preset replay, the learned (not ``fixed``) selection,
-the reference's in-loop upload retries, ``dynamic_price=False``.  The JAX
-env is a per-env function under ``vmap``; here every tensor carries a leading
-E axis and one call steps all E envs.
+Port of ``mat_dcml_tpu/envs/dcml/env.py::DCMLEnv`` with non-Shannon rates
+and ``dynamic_price=False`` (the Shannon mode and dynamic prices change the
+obs widths and are not ported: ROADMAP.md queue 1, item 5).  Three modes of
+the JAX env's config are ported beside the training recipe:
+
+- ``preset``: the benchmark protocol's deterministic replay.  Each reset
+  takes R, C, the master's Pr, the workers' Prs and the disable rate from
+  row ``episode_idx mod N`` of a fixture (:class:`~.preset.PresetData`,
+  default ``data/dcml_benchmark/Sample_1``), where ``episode_idx`` is the
+  cursor kept in the env state (``env.py:163-171``); the trace noise,
+  arrival slot and availability order are still drawn;
+- ``fixed``: the "select every available worker, K = floor(0.7 N)"
+  baseline (``env.py:260``), which ignores the action;
+- ``fixed_upload_retry``: one geometric upload-retry draw a worker instead
+  of one per drained slot (``env.py:391``).  It reads its uniform from
+  ``StepDraws.nb_u[..., 0]``.
+
+The JAX env is a per-env function under ``vmap``; here every tensor carries a
+leading E axis and one call steps all E envs.
 
 Randomness is an input: ``reset`` takes a :class:`ResetDraws` and ``step`` a
 :class:`StepDraws`, each holding exactly the values the JAX env draws from
@@ -30,6 +44,7 @@ import torch
 
 from mat_dcml_tpu_torch.device import resolve_device
 from mat_dcml_tpu_torch.envs.dcml.constants import DCMLConsts
+from mat_dcml_tpu_torch.envs.dcml.preset import PresetData, load_sample
 
 DATA_DIR = Path(__file__).resolve().parents[3] / "data"
 
@@ -53,7 +68,7 @@ class DCMLState(NamedTuple):
     unavailable: torch.Tensor   # (E, W) bool
     arrive_time: torch.Tensor   # (E,) int64 in [0, P)
     disable_rate: torch.Tensor  # (E,) int64
-    episode_idx: torch.Tensor   # (E,) int64
+    episode_idx: torch.Tensor   # (E,) int64, the preset replay cursor
 
 
 class TimeStep(NamedTuple):
@@ -85,6 +100,7 @@ class StepDraws(NamedTuple):
 
     geom_u: torch.Tensor     # (E, W) U(tiny, 1): download retries
     nb_u: torch.Tensor       # (E, W, NB_DRAW_CAP) U(tiny, 1): upload retries
+                             # (fixed_upload_retry reads [..., 0] only)
     nb_normal: torch.Tensor  # (E, W) N(0, 1): retries past the cap
     done_u: torch.Tensor     # (E,) U(0, 1)
     reset: ResetDraws
@@ -100,12 +116,11 @@ class DCMLEnvConfig:
     shannon_enable: bool = False
 
     def __post_init__(self):
-        for flag in ("fixed", "preset", "fixed_upload_retry", "shannon_enable"):
-            if getattr(self, flag):
-                raise NotImplementedError(
-                    f"DCMLEnvConfig.{flag} is off the training recipe and not ported yet "
-                    "(ROADMAP.md queue 1, item 5)"
-                )
+        if self.shannon_enable:
+            raise NotImplementedError(
+                "DCMLEnvConfig.shannon_enable changes the share_obs width and is not ported yet "
+                "(ROADMAP.md queue 1, item 5)"
+            )
 
 
 def load_base_workloads(path: Path, consts: DCMLConsts) -> np.ndarray:
@@ -157,7 +172,8 @@ class DCMLEnv:
 
     def __init__(self, config: DCMLEnvConfig = DCMLEnvConfig(),
                  base_workloads: Optional[np.ndarray] = None,
-                 data_dir: str | Path = DATA_DIR, device=None):
+                 data_dir: str | Path = DATA_DIR, device=None,
+                 preset: Optional[PresetData] = None):
         self.cfg = config
         c = config.consts
         if base_workloads is None:
@@ -167,10 +183,27 @@ class DCMLEnv:
         self.device = resolve_device(device)
         self.base_workloads = torch.as_tensor(base_workloads, dtype=torch.float32,
                                               device=self.device)
+        self.preset_master = self.preset_worker_prs = self.preset_disable_rates = None
+        if config.preset:
+            self.set_preset(preset if preset is not None
+                            else load_sample(Path(data_dir) / "dcml_benchmark", 1))
         self.n_agents = c.n_agents
         self.obs_dim = c.local_obs_dim
         self.share_obs_dim = c.sob_dim
         self.action_dim = c.action_dim
+
+    def set_preset(self, data: PresetData) -> None:
+        """Replay ``data`` from now on (``preset`` mode): R, C and the
+        master's Pr as f32, the workers' Prs as f32, the disable rates as
+        integers, as the JAX env holds them."""
+        if not self.cfg.preset:
+            raise ValueError("set_preset needs DCMLEnvConfig(preset=True)")
+        dev = self.device
+        self.preset_master = torch.as_tensor(np.asarray(data.master, np.float32), device=dev)
+        self.preset_worker_prs = torch.as_tensor(np.asarray(data.worker_prs, np.float32),
+                                                 device=dev)
+        self.preset_disable_rates = torch.as_tensor(np.asarray(data.disable_rates, np.int64),
+                                                    device=dev)
 
     def draw_reset(self, n_envs: int, generator: Optional[torch.Generator] = None) -> ResetDraws:
         """A reset's draws for ``n_envs`` envs from ``generator``, on the env's device."""
@@ -210,20 +243,30 @@ class DCMLEnv:
         E = draws.disable_rate.shape[0]
         dev = self.device
         episode_idx = torch.as_tensor(episode_idx, dtype=torch.int64, device=dev).expand(E)
+        r_rows, c_cols, master_pr = draws.r_rows.float(), draws.c_cols.float(), draws.master_pr
+        worker_prs, disable_rate = draws.worker_prs, draws.disable_rate
+        if self.cfg.preset:
+            # row episode_idx mod N of the fixture (env.py:163-171): wraps
+            # past its end, as the JAX env does
+            idx = torch.remainder(episode_idx, self.preset_master.shape[0])
+            row = self.preset_master[idx]
+            r_rows, c_cols, master_pr = row[:, 0], row[:, 1], row[:, 2]
+            worker_prs = self.preset_worker_prs[idx]
+            disable_rate = self.preset_disable_rates[idx]
         trace = torch.clamp(self.base_workloads * draws.trace_noise, 0.0, 1.0)
         # np.random.choice(W, disable_rate, replace=False): the first
         # disable_rate slots of a random permutation are unavailable
         perm_rank = torch.argsort(draws.avail_u, dim=-1, stable=True)
-        unavailable = perm_rank < draws.disable_rate[:, None]
+        unavailable = perm_rank < disable_rate[:, None]
         state = DCMLState(
-            r_rows=draws.r_rows.float(),
-            c_cols=draws.c_cols.float(),
-            master_pr=draws.master_pr,
-            worker_prs=draws.worker_prs,
+            r_rows=r_rows,
+            c_cols=c_cols,
+            master_pr=master_pr,
+            worker_prs=worker_prs,
             trace=trace,
             unavailable=unavailable,
             arrive_time=draws.arrive_time,
-            disable_rate=draws.disable_rate,
+            disable_rate=disable_rate,
             episode_idx=episode_idx + 1,
         )
         obs, share_obs, ava = self._observe(state)
@@ -243,17 +286,23 @@ class DCMLEnv:
         """One task round per env; ``Env.step`` (``DCML_..._SingleProcess.py:57-144``).
 
         ``action``: ``(E, A)`` or ``(E, A, 1)``: 100 select bits, then the
-        coding ratio (the extra agent's continuous action).
+        coding ratio (the extra agent's continuous action).  The ``fixed``
+        mode ignores it (it may be None): every available worker is
+        selected and K = floor(0.7 N) (``env.py:260-264``).
         """
         c = self.cfg.consts
         W = c.worker_number_max
         E = state.r_rows.shape[0]
-        action = action.reshape(E, -1)
-
-        select = action[:, :W]
-        ratio = action[:, -1]
-        n_raw = select.sum(-1)
-        k_code = torch.ceil(n_raw * ratio)
+        if self.cfg.fixed:
+            select = (~state.unavailable).float()
+            n_raw = select.sum(-1)
+            k_code = torch.floor(n_raw * 0.7)
+        else:
+            action = action.reshape(E, -1)
+            select = action[:, :W]
+            ratio = action[:, -1]
+            n_raw = select.sum(-1)
+            k_code = torch.ceil(n_raw * ratio)
         standalone = n_raw < 0.5
         # clamp N in [1, W], K in [1, N] (:96-103); no worker selected gives K = N = 1
         n_sel = torch.clamp(n_raw, 1.0, float(W))
@@ -338,8 +387,12 @@ class DCMLEnv:
         m_slots = torch.clamp(q_full * P + t_part, max=self.cfg.max_drain_slots)
         drained = q_full * cap_period + c20.gather(2, (t_part - 1)[..., None])[..., 0]
 
-        # upload retries: one geometric draw per drained timeslot (:99-106)
-        extra_fails = _negative_binomial(draws.nb_u, draws.nb_normal, m_slots, prs)
+        # upload retries: one geometric draw per drained timeslot (:99-106),
+        # or one draw in all under fixed_upload_retry
+        if self.cfg.fixed_upload_retry:
+            extra_fails = _geometric_failures(draws.nb_u[..., 0], prs)
+        else:
+            extra_fails = _negative_binomial(draws.nb_u, draws.nb_normal, m_slots, prs)
         upload_delay = (
             c.second_to_centsec
             * (torch.ceil(r_wl) * 1.0 * c.bit_to_byte / download + 0.001)

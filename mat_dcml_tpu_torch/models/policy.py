@@ -1,10 +1,11 @@
 """The MAT policy: rollout decode, teacher-forced evaluation, values.
 
 Port of ``mat_dcml_tpu/models/policy.py::TransformerPolicy`` for the cached
-and the scan decode, for all four action families.  The JAX policy is a bundle of pure functions over an
-explicit params tree; here it holds the ``MultiAgentTransformer`` whose
-parameters the trainer updates in place.  All methods keep the ``(batch, n_agent, dim)``
-layout.
+and the scan decode, for all four action families, and ``act_stride``, the
+benchmark protocol's deterministic stride decode (discrete families).  The
+JAX policy is a bundle of pure functions over an explicit params tree; here
+it holds the ``MultiAgentTransformer`` whose parameters the trainer updates
+in place.  All methods keep the ``(batch, n_agent, dim)`` layout.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ import torch
 from mat_dcml_tpu_torch.models.decode import (
     CONTINUOUS_FAMILIES,
     DECODE_MODES,
+    draw_noise,
+    noise_shapes,
     parallel_act,
     serve_decode,
 )
@@ -74,6 +77,23 @@ class TransformerPolicy:
             self.model, state, obs, available_actions, deterministic, mode=self.decode_mode,
             device=self.device, generator=generator, gumbel=gumbel, tail_noise=tail_noise,
         )
+        return PolicyOutput(v_loc, res.action, res.log_prob)
+
+    def draw_noise(self, n_envs: int, steps: int, generator: Optional[torch.Generator]):
+        """``(gumbel, tail_noise)`` for ``steps`` decodes of ``n_envs`` rows,
+        each with a leading ``steps`` axis (None where the family reads
+        none), from ``generator`` on the policy's device."""
+        shapes = tuple(None if s is None else (steps,) + s
+                       for s in noise_shapes(self.cfg, n_envs))
+        return draw_noise(shapes, generator, self.device)
+
+    def act_stride(self, state, obs, available_actions=None, stride: int = 2) -> PolicyOutput:
+        """Deterministic stride-batched decode for benchmark-protocol parity
+        (``transformer_policy.py:219-241`` with ``stride``): ``stride``
+        agents committed a teacher-forced decoder pass, whose attentions go
+        through the attention kernel on the card."""
+        v_loc, res = serve_decode(self.model, state, obs, available_actions, True,
+                                  mode="stride", stride=stride, device=self.device)
         return PolicyOutput(v_loc, res.action, res.log_prob)
 
     def evaluate_actions(self, state, obs, action, available_actions=None):

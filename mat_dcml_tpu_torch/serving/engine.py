@@ -101,9 +101,24 @@ class DecodeEngine:
         # the config the decode runs with: a bf16 trunk for serve_dtype "bf16"
         self.serve_cfg = dataclasses.replace(cfg, dtype="bfloat16") if self._bf16 else cfg
         self.dispatch_counts: Dict[int, int] = {b: 0 for b in engine_cfg.buckets}
+        # the export's obs / act space metadata (set by from_export)
+        self.space_meta: Dict = {}
         self._model = self._build_model(params)
         self._zero_batches: Dict[int, Tuple[np.ndarray, ...]] = {}
         self._steady = False
+
+    @classmethod
+    def from_export(cls, directory, engine_cfg: EngineConfig = EngineConfig(),
+                    telemetry: Optional[Telemetry] = None, log_fn=print,
+                    device=None) -> "DecodeEngine":
+        """Build from a weights-only export (``training/checkpoint.py::export_policy``);
+        ``space_meta`` is the export's."""
+        from mat_dcml_tpu_torch.training.checkpoint import load_policy
+
+        params, cfg, space_meta = load_policy(directory)
+        eng = cls(params, cfg, engine_cfg, telemetry, log_fn, device=device)
+        eng.space_meta = space_meta
+        return eng
 
     def _build_model(self, params) -> MultiAgentTransformer:
         model = MultiAgentTransformer(self.serve_cfg, device=self.device)

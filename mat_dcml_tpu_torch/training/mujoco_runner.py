@@ -3,8 +3,9 @@
 Port of ``mat_dcml_tpu/training/generic_runner.py::build_discrete_policy``
 (the action family from the env's action space) and of the training loop of
 ``mat_dcml_tpu/training/mujoco_runner.py::MujocoRunner`` for the MAT
-algorithm over :class:`~mat_dcml_tpu_torch.envs.mamujoco.MJLiteEnv`.  Not
-ported yet (ROADMAP.md queue 1, item 10): fault injection and the faulty-node
+algorithm over :class:`~mat_dcml_tpu_torch.envs.mamujoco.MJLiteEnv`, with the
+episodic runner's checkpoints, resume and graceful stop.  Not ported yet
+(ROADMAP.md queue 1, item 10): fault injection and the faulty-node
 evaluation sweep (``envs/mamujoco/fault.py``), per-episode agent-order
 shuffling (``--random_order``), the real-MuJoCo gym backend, and evaluation.
 """
@@ -43,6 +44,9 @@ class MujocoRunner(EpisodicRunner):
 
     def __init__(self, run: RunConfig, ppo: PPOConfig, env_config: MJLiteConfig = MJLiteConfig(),
                  log_fn=print):
+        if run.use_eval:
+            raise NotImplementedError("use_eval: MuJoCo's evaluation is not ported yet "
+                                      "(ROADMAP.md queue 1, item 10)")
         self.env_config = env_config
         super().__init__(run, ppo, log_fn)
 

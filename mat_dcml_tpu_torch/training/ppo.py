@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -126,6 +126,32 @@ class MATTrainer:
     def init_state(self) -> TrainState:
         opt = torch.optim.Adam(self.params, lr=self.cfg.lr, eps=self.cfg.opti_eps, foreach=True)
         return TrainState(optimizer=opt, value_norm=value_norm_init(1, device=self.policy.device))
+
+    def state_dict(self, state: TrainState) -> Dict[str, Any]:
+        """The whole training state, as live tensors (a checkpoint copies
+        them): the model's ``state_dict``, Adam's (moments and step counts),
+        the ValueNorm's tensors and the update count."""
+        return {
+            "model": self.policy.model.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
+            "value_norm": state.value_norm._asdict(),
+            "update_step": state.update_step,
+        }
+
+    def load_state_dict(self, state: TrainState, saved: Dict[str, Any]) -> TrainState:
+        """Load ``saved`` (a :meth:`state_dict`) into the live model and
+        ``state``'s optimizer, in place, so Adam keeps the model's own
+        parameters.  Adam's step counts go to the CPU, where a fresh
+        (non-capturable) Adam keeps them."""
+        self.policy.model.load_state_dict(saved["model"])
+        opt = saved["optimizer"]
+        opt = {**opt, "state": {k: {n: v.cpu() if n == "step" else v for n, v in st.items()}
+                                for k, st in opt["state"].items()}}
+        state.optimizer.load_state_dict(opt)
+        dev = self.policy.device
+        state.value_norm = ValueNormState(**{k: v.to(dev) for k, v in saved["value_norm"].items()})
+        state.update_step = int(saved["update_step"])
+        return state
 
     def draw_permutations(self, n_rows: int, generator: Optional[torch.Generator]) -> torch.Tensor:
         return permutations(self.cfg.ppo_epoch, n_rows, generator, self.policy.device)

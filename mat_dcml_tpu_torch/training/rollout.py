@@ -28,7 +28,6 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from mat_dcml_tpu_torch.models.decode import draw_noise, noise_shapes
 from mat_dcml_tpu_torch.models.policy import TransformerPolicy
 
 
@@ -69,7 +68,8 @@ class CollectDraws(NamedTuple):
     actions ``tail_noise (T, A, E, adim)`` only."""
 
     gumbel: Optional[torch.Tensor]      # Gumbel noise of the categorical draws
-    tail_noise: Optional[torch.Tensor]  # normals of the Gaussian parts
+    tail_noise: Optional[torch.Tensor]  # normals of the Gaussian parts (the
+                                        # random baseline: its U(0, 1) draws)
     env: NamedTuple                     # the env's StepDraws, every field (T, E, ...)
 
 
@@ -96,9 +96,7 @@ class RolloutCollector:
         """The chunk's noise and env draws from ``generator`` on the policy's
         device."""
         env_draws = _stack([self.env.draw_step(n_envs, generator) for _ in range(self.T)])
-        shapes = tuple(None if s is None else (self.T,) + s
-                       for s in noise_shapes(self.policy.cfg, n_envs))
-        gumbel, tail_noise = draw_noise(shapes, generator, self.policy.device)
+        gumbel, tail_noise = self.policy.draw_noise(n_envs, self.T, generator)
         return CollectDraws(gumbel=gumbel, tail_noise=tail_noise, env=env_draws)
 
     def init_state(self, n_envs: int, draws: Optional[NamedTuple] = None,

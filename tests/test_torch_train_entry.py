@@ -1,7 +1,8 @@
 """The port's training entry point, ``python -m mat_dcml_tpu_torch.train_dcml``,
 run on the CPU for a short job at a small size: it must write finite
-``metrics.jsonl`` records with the JAX record's basic keys, reject flags it
-does not support, and default to the card."""
+``metrics.jsonl`` records with the JAX record's basic keys and checkpoints at
+the recipe's cadence, reject flags it does not support, and default to the
+card."""
 
 import json
 import math
@@ -30,7 +31,10 @@ def _run(*args):
 def test_short_cpu_run_writes_finite_metrics(tmp_path):
     res = _run("--device", "cpu", "--run_dir", str(tmp_path), *SMALL_RUN)
     assert res.returncode == 0, res.stderr[-2000:]
-    assert "checkpointing is not ported yet" in res.stdout.splitlines()[0]
+    # the recipe's cadence (save_interval 50): episode 0 and the last
+    models = tmp_path / "DCML/AS/mat/check/models"
+    assert sorted(p.name for p in models.iterdir() if p.name.isdigit()) == ["0", "1"]
+    assert "saves no model" not in res.stdout
     lines = (tmp_path / "DCML/AS/mat/check/metrics.jsonl").read_text().splitlines()
     records = [json.loads(line) for line in lines]
     assert [r["episode"] for r in records] == [0, 1]
@@ -40,7 +44,7 @@ def test_short_cpu_run_writes_finite_metrics(tmp_path):
     assert "aver_episode_delays" in records[0] or "aver_episode_delays" in records[1]
 
 
-@pytest.mark.parametrize("flag", ["--no_such_flag", "--update_stream_chunks", "--save_interval"])
+@pytest.mark.parametrize("flag", ["--no_such_flag", "--update_stream_chunks", "--eval_episodes"])
 def test_unknown_and_unported_flags_are_errors(tmp_path, capsys, flag):
     with pytest.raises(SystemExit) as exc:
         train_dcml.main(["--device", "cpu", "--run_dir", str(tmp_path), flag, "4"])

@@ -8,6 +8,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from mat_dcml_tpu.models.decode import serve_decode as jax_serve_decode
@@ -207,9 +208,11 @@ def _jax_reset_draws_one(key, consts):
     return key, draws
 
 
-def _jax_step_draws_one(rng, consts):
+def _jax_step_draws_one(rng, consts, fixed_upload_retry=False):
     """The draws of ``DCMLEnv.step`` from the state's key (``env.py:258``,
-    ``:352``, ``:568``), then its auto-reset's; returns the next state's key."""
+    ``:352``, ``:568``), then its auto-reset's; returns the next state's key.
+    Under ``fixed_upload_retry`` the one upload-retry uniform (``k_ul``) goes
+    where the port reads it, ``nb_u[..., 0]``."""
     from mat_dcml_tpu.envs.dcml.env import _NB_DRAW_CAP, _uniform_open
 
     W = consts.worker_number_max
@@ -217,9 +220,12 @@ def _jax_step_draws_one(rng, consts):
     k_dl, k_ul = jax.random.split(k_proc)
     k_g, k_t = jax.random.split(k_ul)
     nxt, reset = _jax_reset_draws_one(k_reset, consts)
+    nb_u = _uniform_open(k_g, (W, _NB_DRAW_CAP))
+    if fixed_upload_retry:
+        nb_u = nb_u.at[:, 0].set(_uniform_open(k_ul, (W,)))
     draws = dict(
         geom_u=_uniform_open(k_dl, (W,)),
-        nb_u=_uniform_open(k_g, (W, _NB_DRAW_CAP)),
+        nb_u=nb_u,
         nb_normal=jax.random.normal(k_t, (W,)),
         done_u=jax.random.uniform(k_done, ()),
         reset=reset,
@@ -242,11 +248,56 @@ def jax_reset_draws(keys, consts):
     return _to_reset_draws(d)
 
 
-def jax_step_draws(rngs, consts):
+def jax_step_draws(rngs, consts, fixed_upload_retry=False):
     """``(next keys, port StepDraws)`` replayed from the env states' keys."""
     from mat_dcml_tpu_torch.envs.dcml.env import StepDraws
 
-    nxt, d = jax.vmap(lambda k: _jax_step_draws_one(k, consts))(rngs)
+    nxt, d = jax.vmap(lambda k: _jax_step_draws_one(k, consts, fixed_upload_retry))(rngs)
     reset = _to_reset_draws(d.pop("reset"))
     return nxt, StepDraws(**{k: torch.from_numpy(np.array(v)) for k, v in d.items()},
                           reset=reset)
+
+
+# ------------------------------------------------------------- saved states
+
+def state_leaves(tree, prefix=""):
+    """``{path: leaf}`` of a nested training state (dicts, lists, tuples,
+    NamedTuples as dicts)."""
+    if hasattr(tree, "_asdict"):
+        tree = tree._asdict()
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(state_leaves(v, f"{prefix}/{k}"))
+    return out
+
+
+def assert_states_equal(a, b):
+    """Two training states equal bit for bit: the same paths, every tensor
+    of the same dtype, shape and values, every other leaf equal."""
+    la, lb = state_leaves(a), state_leaves(b)
+    assert la.keys() == lb.keys()
+    for k in la:
+        x, y = la[k], lb[k]
+        if isinstance(x, torch.Tensor):
+            assert isinstance(y, torch.Tensor) and x.dtype == y.dtype and x.shape == y.shape, k
+            assert torch.equal(x.cpu(), y.cpu()), k
+        else:
+            assert x == y, k
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """One torch intra-op thread for a module's tests, restored after: the
+    suite runs on several workers at once, and torch's OpenMP threads
+    spin-wait when the cores are oversubscribed (six small trainings at
+    once take ~90 times as long as one)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
