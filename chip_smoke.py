@@ -77,10 +77,22 @@ Phases, each printed on its own line and each fatal on failure:
    DCMLRunner.evaluate, 100 steps, scan (one ar_decode launch a step and
    the warm-up) and stride 10, and act_stride card vs CPU; (f) the sweep
    (sweep_dcml) from the export on Sample_1, 2 settings x 100 steps at
-   stride 10.  Its times print beside the card's name and power limit.
+   stride 10.  Its times print beside the card's name and power limit;
+10. the rest of the DCML MAT family at that width and recipe, scan decode,
+   f32: one iteration each of ``momat`` (MO-MAT, a two-objective critic),
+   ``dmomat`` (preference weights appended to obs and share_obs) and
+   ``mat_dec`` (MAT-Dec: an MLP actor, no decoder trunk, so no ar_decode
+   launch), and one ``momat`` iteration with lr decay, weight decay 1e-4
+   and ``mo_combined_norm`` false, each with launches counted exactly,
+   finite per-objective records and one more update matched against the
+   CPU port; a ``dmomat`` run stopped by SIGTERM after its first episode
+   and resumed, equal to the uninterrupted 2-episode run (held as phase 9
+   (b)); the ``dmomat`` export served at bucket 8, equal to the in-memory
+   weights' engine bit for bit.
 
 The bf16 legs' readings are a JSON line ``{"bf16_legs": {...}}``, phase 9's
-``{"checkpoint_phase": {...}}``; the last
+``{"checkpoint_phase": {...}}``, phase 10's ``{"mat_family_phase": {...}}``;
+the last
 two lines of standard output are a JSON object describing each kernel and
 the result line ``{"ok": true, "device": {...}}``.  Without a
 CUDA device it exits 2 and prints no result.
@@ -1370,8 +1382,9 @@ def _expected_launches(cfg, run, ppo, iters):
 
 
 def _to_cpu(x):
-    """A NamedTuple of tensors (nested) copied to the CPU."""
-    return type(x)(*(_to_cpu(v) if isinstance(v, tuple) else v.cpu() for v in x))
+    """A NamedTuple of tensors (nested; None leaves kept) copied to the CPU."""
+    return type(x)(*(_to_cpu(v) if isinstance(v, tuple) else None if v is None else v.cpu()
+                     for v in x))
 
 
 def _match_cpu_update(torch, runner, ppo, train_state, rollout_state, tag="phase 5"):
@@ -1391,7 +1404,7 @@ def _match_cpu_update(torch, runner, ppo, train_state, rollout_state, tag="phase
                                              runner.generator)
     cpu_policy = TransformerPolicy(runner.policy.cfg, device="cpu")
     cpu_policy.model.load_state_dict(runner.policy.model.state_dict())
-    cpu_trainer = MATTrainer(cpu_policy, ppo)
+    cpu_trainer = MATTrainer(cpu_policy, ppo, total_updates=runner.trainer.total_updates)
     cpu_state = cpu_trainer.init_state()
     cpu_state.optimizer.load_state_dict(copy.deepcopy(train_state.optimizer.state_dict()))
     cpu_state.value_norm = ValueNormState(*(x.cpu() for x in train_state.value_norm))
@@ -1404,9 +1417,10 @@ def _match_cpu_update(torch, runner, ppo, train_state, rollout_state, tag="phase
     card_s = time.perf_counter() - t0
     launches = (ca.launches, ca.bwd_launches)
     t0 = time.perf_counter()
-    cpu_state, cmet = cpu_trainer.train(
-        cpu_state, type(traj)(*(x.cpu() for x in traj[:-1]), chunk_stats={}), _to_cpu(rollout_state),
-        perms=perms.cpu())
+    cpu_traj = traj._replace(chunk_stats={}, **{k: v.cpu() for k, v in traj._asdict().items()
+                                                 if isinstance(v, torch.Tensor)})
+    cpu_state, cmet = cpu_trainer.train(cpu_state, cpu_traj, _to_cpu(rollout_state),
+                                        perms=perms.cpu())
     cpu_s = time.perf_counter() - t0
 
     steps = ppo.ppo_epoch * ppo.num_mini_batch
@@ -2100,6 +2114,7 @@ def phase9_checkpoint(torch, card):
             "eval_inference_sec_per_call_stride": info_stride["eval_inference_sec_per_call"],
             "sweep_wall_s_per_setting": walls,
             "deterministic": deterministic,
+            "spread": spread,
             "card": card,
         }
         say(f"{tag} times on {card}: save blocking (what the loop pays) median "
@@ -2109,6 +2124,218 @@ def phase9_checkpoint(torch, card):
             f"eval_inference_sec_per_call scan {info_scan['eval_inference_sec_per_call']:.6f}, "
             f"stride {info_stride['eval_inference_sec_per_call']:.6f}; sweep wall per setting "
             + ", ".join(f"{w:.3f}s" for w in walls))
+        return paths, readings
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _expect_device(device, what):
+    if device.type != "cuda":
+        raise AssertionError(f"{what}: runner defaulted to {device}")
+
+
+def _expect_launches(got, want, what):
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+
+
+def _mo_expected(cfg, run, ppo, iters=1):
+    """``(attention_fwd, attention_bwd, ar_decode, decode_step)`` launches of
+    ``iters`` scan-mode iterations and ``(fwd, bwd)`` of one update.  MO-MAT
+    and DMO-MAT launch as MAT does (phase 5's scan iteration).  MAT-Dec has
+    no decoder trunk: a collect step is the encoder's n_block forward
+    launches and no ``ar_decode``; an update, per epoch the target
+    recompute's n_block, per minibatch n_block forward and n_block backward
+    (the encoder's blocks; the MLP actor has no attention)."""
+    nb, T = cfg.n_block, run.episode_length
+    if cfg.dec_actor:
+        upd = (ppo.ppo_epoch * (nb + ppo.num_mini_batch * nb),
+               ppo.ppo_epoch * ppo.num_mini_batch * nb)
+        return (iters * (T * nb + upd[0]), iters * upd[1], 0, 0), upd
+    _, _, upd_fwd, upd_bwd = _expected_launches(cfg, run, ppo, 1)
+    return (iters * (T * nb + upd_fwd), iters * upd_bwd, iters * T, 0), (upd_fwd, upd_bwd)
+
+
+def phase10_mat_family(torch, card, deterministic, spread):
+    """The rest of the DCML MAT family at full width (101 agents, n_embd 64,
+    2 blocks, 2 heads, f32) with the recipe uncut (E 8, T 50, 15 x 4
+    minibatches), scan decode: one iteration each of ``momat``, ``dmomat``
+    and ``mat_dec``, and one ``momat`` iteration with lr decay, weight decay
+    1e-4 and ``mo_combined_norm`` false, each with its launches counted
+    exactly and one more update matched against the CPU port; a ``dmomat``
+    run stopped by SIGTERM after its first episode and resumed, against the
+    uninterrupted 2-episode run (bit for bit where phase 9 (a) found the
+    card deterministic, else within its spread); the ``dmomat`` export
+    served at bucket 8, equal to the in-memory weights' engine bit for bit.
+    Returns ``{path: (attention_fwd, attention_bwd, ar_decode, decode_step)
+    launches}`` and the phase's readings."""
+    import math
+    import os
+    import shutil
+    import signal
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from mat_dcml_tpu_torch import export_policy as export_cli
+    from mat_dcml_tpu_torch.config import RunConfig
+    from mat_dcml_tpu_torch.ops import ar_decode as ard
+    from mat_dcml_tpu_torch.ops import cuda_attention as ca
+    from mat_dcml_tpu_torch.ops import decode_step as dst
+    from mat_dcml_tpu_torch.serving.engine import DecodeEngine, EngineConfig
+    from mat_dcml_tpu_torch.training.ppo import PPOConfig
+    from mat_dcml_tpu_torch.training.resilience import EXIT_PREEMPTED
+    from mat_dcml_tpu_torch.training.runner import DCMLRunner
+
+    tag = "[phase 10]"
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_mo_"))
+    paths, readings = {}, {"card": card}
+
+    def launches():
+        return ca.launches, ca.bwd_launches, ard.launches, dst.launches
+
+    def zero():
+        ca.launches = ca.bwd_launches = ard.launches = dst.launches = 0
+
+    def runner(name, algo, ppo, log=None, episodes=1, **kw):
+        kw.setdefault("num_env_steps", episodes * 50 * 8)
+        run = RunConfig(seed=SEED, algorithm_name=algo, decode_mode="scan", log_interval=1,
+                        run_dir=str(root / name), **kw)
+        return DCMLRunner(run, ppo, log_fn=log or (lambda m: say(f"{tag} {name}: {m}")))
+
+    def final(r, state):
+        torch.cuda.synchronize()
+        return {**r.trainer.state_dict(state), "generator": r.generator.get_state()}
+
+    try:
+        # the lr-decay run keeps the recipe's 1M steps, so its schedule
+        # (episodes = 2,500 Adam steps, ``training/ppo.py::MATTrainer.lr_at``)
+        # is still falling in the checked update
+        iterations = (("momat", "momat", PPOConfig(), {}),
+                      ("dmomat", "dmomat", PPOConfig(), {}),
+                      ("mat_dec", "mat_dec", PPOConfig(), {}),
+                      ("momat_lr_decay", "momat",
+                       PPOConfig(use_linear_lr_decay=True, weight_decay=1e-4,
+                                 mo_combined_norm=False),
+                       {"num_env_steps": RunConfig().num_env_steps}))
+        for name, algo, ppo, kw in iterations:
+            r = runner(name, algo, ppo, **kw)
+            cfg = r.policy.cfg
+            _expect_device(r.device, name)
+            train_state, rollout_state = r.setup()
+            torch.cuda.synchronize()
+            zero()
+            train_state, rollout_state = r.train_loop(1, train_state, rollout_state)
+            torch.cuda.synchronize()
+            paths[f"training_{name}"] = launches()
+            want, upd = _mo_expected(cfg, r.run_cfg, ppo)
+            rec = r.records[0]
+            it = rec["step_time_collect"] + rec["step_time_train"]
+            say(f"{tag} {name} ({algo}: obs {cfg.obs_dim}, state {cfg.state_dim}, n_objective "
+                f"{cfg.n_objective}, dec_actor {cfg.dec_actor}, share_actor {cfg.share_actor}; "
+                f"lr decay {ppo.use_linear_lr_decay}, weight decay {ppo.weight_decay}, "
+                f"mo_combined_norm {ppo.mo_combined_norm}) scan iteration on {card}: collect "
+                f"{rec['step_time_collect']:.3f}s, update {rec['step_time_train']:.3f}s "
+                f"({rec['step_time_train'] / it:.1%} of {it:.3f}s); launches fwd/bwd/ar_decode/"
+                f"decode_step {paths[f'training_{name}']} (expected {want})")
+            _expect_launches(paths[f"training_{name}"], want, name)
+            if not all(math.isfinite(v) for v in rec.values()):
+                raise AssertionError(f"{name}: metrics not finite: {rec}")
+            objectives = [f"average_step_objective_{i}" for i in range(cfg.n_objective)]
+            if cfg.n_objective > 1 and not all(k in rec for k in objectives):
+                raise AssertionError(f"{name}: no per-objective records in {sorted(rec)}")
+            say(f"{tag} {name} record: " + ", ".join(f"{k} {rec[k]:.6g}" for k in (
+                "average_step_rewards", *(objectives if cfg.n_objective > 1 else ()),
+                "value_loss", "policy_loss", "dist_entropy", "grad_norm")))
+            readings[name] = {"collect_s": rec["step_time_collect"],
+                              "update_s": rec["step_time_train"],
+                              "lr_after": train_state.optimizer.param_groups[0]["lr"]}
+            card_launches = _match_cpu_update(torch, r, ppo, train_state, rollout_state,
+                                              tag=f"phase 10 {name}")
+            _expect_launches(card_launches, upd, f"{name}'s update")
+            torch.cuda.synchronize()
+
+        # dmomat: 2 uninterrupted episodes; 1, SIGTERM, the emergency carry
+        # (the preference weights with it), exit 75, resume="auto" for the 2nd
+        ppo = PPOConfig()
+        ref = runner("dmomat_ref", "dmomat", ppo, episodes=2, save_interval=1)
+        ref_state, ref_rollout = ref.train_loop()
+        ref_final = final(ref, ref_state)
+
+        def sigterm_after_0(m):
+            say(f"{tag} dmomat_stop: {m}")
+            if m.startswith("ep 0 "):
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        torch.cuda.synchronize()
+        zero()
+        stopped = runner("dmomat_stop", "dmomat", ppo, log=sigterm_after_0, episodes=2,
+                         save_interval=1)
+        try:
+            stopped.train_loop()
+            raise AssertionError("dmomat: the run did not stop on SIGTERM")
+        except SystemExit as e:
+            if e.code != EXIT_PREEMPTED:
+                raise AssertionError(f"dmomat: exit code {e.code}, expected {EXIT_PREEMPTED}")
+        resumed = runner("dmomat_stop", "dmomat", ppo, episodes=2, save_interval=1,
+                         resume="auto")
+        res_state, res_rollout = resumed.setup()
+        if resumed.start_episode != 1:
+            raise AssertionError(f"dmomat: resumed at episode {resumed.start_episode}")
+        res_state, res_rollout = resumed.train_loop(train_state=res_state,
+                                                    rollout_state=res_rollout)
+        torch.cuda.synchronize()
+        paths["resume_dmomat"] = launches()
+        want, _ = _mo_expected(ref.policy.cfg, ref.run_cfg, ppo, iters=2)
+        _expect_launches(paths["resume_dmomat"], want, "dmomat resume")
+        equal, diff = _state_diff(torch, final(resumed, res_state), ref_final, "dmomat resume")
+        coefs_equal = torch.equal(res_rollout.objective_coefficients,
+                                  ref_rollout.objective_coefficients)
+        if deterministic and not (equal and coefs_equal):
+            raise AssertionError(f"dmomat: the resumed run differs from the uninterrupted one "
+                                 f"by {diff:.3g} (weights {equal}, preference weights "
+                                 f"{coefs_equal}) on a deterministic card")
+        if not deterministic and not diff <= spread:
+            raise AssertionError(f"dmomat: resumed run differs by {diff:.3g} > phase 9 (a)'s "
+                                 f"spread {spread:.3g}")
+        say(f"{tag} dmomat: 1 episode, SIGTERM, emergency checkpoint, exit {EXIT_PREEMPTED}, "
+            f"resume='auto' at episode {resumed.start_episode}: equal to the uninterrupted "
+            f"2-episode run bit for bit: {equal} (max |diff| {diff:.3g}), preference weights "
+            f"equal: {coefs_equal}; launches fwd/bwd/ar_decode/decode_step "
+            f"{paths['resume_dmomat']} (expected {want})")
+        readings["dmomat_resume_equal"] = bool(equal and coefs_equal)
+
+        # the dmomat export, served at the widened width
+        out = root / "exports" / "dmomat"
+        if export_cli.main(["--algorithm_name", "dmomat", "--model_dir",
+                            str(ref.ckpt.directory), "--out", str(out)]) != 0:
+            raise AssertionError("dmomat: export failed")
+        ecfg = EngineConfig(buckets=(1, 8), decode_mode="scan")
+        quiet = lambda *_: None   # noqa: E731
+        torch.cuda.synchronize()
+        zero()
+        eng = DecodeEngine.from_export(out, ecfg, log_fn=quiet)
+        live = DecodeEngine(ref.policy.model.state_dict(), ref.policy.cfg, ecfg, log_fn=quiet)
+        eng.warmup()
+        live.warmup()
+        state_, obs_, avail_ = _requests(eng.cfg, 8, seed=SEED + 10)
+        a, lp = eng.decode(state_, obs_, avail_)
+        b, lq = live.decode(state_, obs_, avail_)
+        torch.cuda.synchronize()
+        paths["serving_dmomat_export"] = launches()
+        nb = eng.cfg.n_block
+        want = (6 * nb, 0, 6, 0)   # two engines: a decode a bucket to warm up, then bucket 8
+        _expect_launches(paths["serving_dmomat_export"], want, "dmomat serving")
+        _check_actions(eng.cfg, a, lp)
+        if (eng.cfg.obs_dim, eng.cfg.state_dim) != (9, 104):
+            raise AssertionError(f"dmomat export widths {eng.cfg.obs_dim}, {eng.cfg.state_dim}")
+        if not (np.array_equal(a, b) and np.array_equal(lp, lq)):
+            raise AssertionError("dmomat: the export's engine differs from the in-memory one")
+        say(f"{tag} dmomat export (obs {eng.cfg.obs_dim}, state {eng.cfg.state_dim} from the "
+            f"manifest) served by DecodeEngine.from_export on the card: bucket 8 scan equal "
+            f"bit for bit to the in-memory weights' engine; launches "
+            f"{paths['serving_dmomat_export']} (expected {want})")
         return paths, readings
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -2186,6 +2413,9 @@ def main() -> int:
     probe_rows, probe_verdicts, probe_launches = phase8_probe(torch)
     ckpt_paths, ckpt_readings = phase9_checkpoint(torch, card)
     say(f"[time] checkpoint phase done at {time.perf_counter() - t_start:.1f}s")
+    mo_paths, mo_readings = phase10_mat_family(torch, card, ckpt_readings["deterministic"],
+                                               ckpt_readings["spread"])
+    say(f"[time] MAT family phase done at {time.perf_counter() - t_start:.1f}s")
 
     dec = shapes["decode"]
     f32_err = max(e for (_, dt), e in errs.items() if dt == "float32")
@@ -2203,9 +2433,10 @@ def main() -> int:
                "training_mujoco_bf16_scan": mj16[:2] + (0, mj16[2])}
 
     def with16(paths, k):
-        """``paths`` with the bf16 paths' and phase 9's launches of kernel ``k``."""
+        """``paths`` with the bf16 paths' and phases 9-10's launches of kernel ``k``."""
         return {**paths, **{name: n[k] for name, n in paths16.items()},
-                **{name: n[k] for name, n in ckpt_paths.items()}}
+                **{name: n[k] for name, n in ckpt_paths.items()},
+                **{name: n[k] for name, n in mo_paths.items()}}
 
     fwd_paths = with16({"serving_cached": serve["cached"][0], "serving_scan": serve["scan"][0],
                         "training_cached": train_fwd, "training_scan": scan_fwd,
@@ -2325,6 +2556,7 @@ def main() -> int:
     }
     say(json.dumps({"bf16_legs": bf16_legs}))
     say(json.dumps({"checkpoint_phase": ckpt_readings}))
+    say(json.dumps({"mat_family_phase": mo_readings}))
     say(f"[done] {time.perf_counter() - t_start:.1f}s wall")
     say(card)   # as nvidia-smi gives it: name, power limit
     say(json.dumps({"kernels": [fwd_kernel, bwd_kernel, ar_kernel, step_kernel, probe_kernel]}))

@@ -8,7 +8,11 @@ the mapping is mechanical:
 
 - ``blocks_<i>`` is the ``ModuleList`` entry ``blocks.<i>``;
 - a Dense ``kernel`` ``(in, out)`` is the transpose of ``Linear.weight``;
-- a LayerNorm ``scale`` is ``LayerNorm.weight``; ``bias`` stays ``bias``.
+- a LayerNorm ``scale`` is ``LayerNorm.weight``; ``bias`` stays ``bias``;
+- a layer stacked on a leading agent axis (MAT-Dec's per-agent actor,
+  JAX ``nn.vmap``: a kernel ``(n_agent, in, out)``, a scale ``(n_agent,
+  d)``) keeps its names and layout: ``kernel`` and ``scale`` are names
+  only these layers' parameters carry in the port.
 
 Both directions copy values exactly.
 """
@@ -45,12 +49,14 @@ def params_from_jax(tree) -> Dict[str, torch.Tensor]:
             m = _BLOCK.match(name)
             mods.extend(("blocks", m.group(1)) if m else (name,))
         last = path[-1]
-        if last == "kernel":
+        if last == "kernel" and arr.ndim == 3:     # stacked on the agent axis
+            name = "kernel"
+        elif last == "kernel":
             if arr.ndim != 2:
                 raise ValueError(f"{'/'.join(path)}: kernel of rank {arr.ndim}")
             name, arr = "weight", arr.T
         elif last == "scale":
-            name = "weight"
+            name = "scale" if arr.ndim == 2 else "weight"
         elif last in ("bias", "log_std"):
             name = last
         else:
@@ -78,7 +84,7 @@ def params_to_jax(state_dict) -> dict:
                 j += 1
         if last == "weight":
             last, arr = ("kernel", arr.T) if arr.ndim == 2 else ("scale", arr)
-        elif last not in ("bias", "log_std"):
+        elif last not in ("bias", "log_std", "kernel", "scale"):
             raise ValueError(f"unknown state_dict entry {key}")
         node = tree
         for name in names:

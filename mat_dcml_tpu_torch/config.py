@@ -47,6 +47,13 @@ class RunConfig:
     n_embd: int = 64
     n_head: int = 2
     model_dtype: str = "float32"
+    # MATConfig's fields (training/runner.py::build_mat_policy): the encoder
+    # reads state; MAT-Dec's MLP actor, shared by all agents or one an agent;
+    # the critic's objectives (momat and dmomat take 2)
+    encode_state: bool = False
+    dec_actor: bool = False
+    share_actor: bool = False
+    n_objective: int = 1
     # rollout decode: "cached", or "scan" (the whole decode in one kernel
     # launch on the card); "stride" is deterministic, so it cannot collect
     decode_mode: str = "cached"

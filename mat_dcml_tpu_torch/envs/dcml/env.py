@@ -79,6 +79,9 @@ class TimeStep(NamedTuple):
     done: torch.Tensor               # (E, A) bool
     delay: torch.Tensor              # (E,)
     payment: torch.Tensor            # (E,)
+    # MO-MAT's objective vector (E, A, 2): (-delay * alpha, -payment * beta),
+    # 1.5x on the standalone path as the reward; objectives.sum(-1) == reward
+    objectives: torch.Tensor
 
 
 class ResetDraws(NamedTuple):
@@ -277,6 +280,7 @@ class DCMLEnv:
             done=torch.zeros(E, A, dtype=torch.bool, device=dev),
             delay=torch.zeros(E, device=dev),
             payment=torch.zeros(E, device=dev),
+            objectives=torch.zeros(E, A, 2, device=dev),
         )
         return state, ts
 
@@ -332,6 +336,11 @@ class DCMLEnv:
         reward = torch.where(standalone, reward_alone, reward_main)
         delay_info = torch.where(standalone, delays[:, 0], final_delay)
         payment_info = torch.where(standalone, cost0_full, payment)
+        # the objective channels (env.py:313-316); the standalone path keeps
+        # its 1.5x scale
+        obj_scale = torch.where(standalone, 1.5, 1.0)
+        objectives = obj_scale[:, None] * torch.stack(
+            [-delay_info * c.reward_alpha, -payment_info * c.reward_beta], dim=-1)
         done = draws.done_u < c.continue_probability   # (:141-142)
 
         new_state, reset_ts = self.reset(draws.reset, state.episode_idx)
@@ -341,6 +350,7 @@ class DCMLEnv:
             done=done[:, None].expand(E, A).contiguous(),
             delay=delay_info,
             payment=payment_info,
+            objectives=objectives[:, None].expand(E, A, 2).contiguous(),
         )
         return new_state, ts
 

@@ -21,6 +21,13 @@ part of ``available_continuous``.  Row ``i`` of each is what JAX draws at
 position ``i`` from ``k_d`` and ``k_c`` of ``key, k_d, k_c = split(key, 3)``,
 at the same shapes.
 
+MAT-Dec (``MATConfig(dec_actor=True)``) has no decoder trunk: its
+``cached`` and ``scan`` decodes are one pass of the MLP actor over all
+agents, then the sampling of every position at once
+(:func:`dec_actor_decode`), the route the JAX package takes for it
+(``mat_dcml_tpu/models/decode.py:77``: no trunk to fuse), so it launches no
+decode kernel.  It reads the same noise as the other decodes.
+
 With a bf16 trunk (``MATConfig(dtype="bfloat16")``) ``obs_rep``, the caches
 and the decode kernels' inputs are bf16, as the JAX decode's are; values,
 logits, log-probs and actions are f32.
@@ -81,6 +88,7 @@ def serve_decode(
     block-commit approximation, discrete families and deterministic only
     (``deterministic=False`` raises).
     ``"spec"`` is not ported yet.  Both exact modes read the same noise.
+    Under ``dec_actor`` both exact modes are :func:`dec_actor_decode`.
     Returns ``(values, DecodeResult)``.
     """
     if mode not in DECODE_MODES:
@@ -107,7 +115,10 @@ def serve_decode(
         v_loc, obs_rep = model.encode(put(state), put(obs))
         avail = put(available_actions)
         if mode == "stride":
-            res = stride_decode(model, obs_rep, avail, stride=stride)
+            res = stride_decode(model, obs_rep, avail, stride=stride, obs=put(obs))
+        elif model.cfg.dec_actor:
+            res = dec_actor_decode(model, put(obs), avail, deterministic, generator=generator,
+                                   gumbel=gumbel, tail_noise=tail_noise)
         else:
             decode = cached_decode if mode == "cached" else ar_decode
             res = decode(model, obs_rep, avail, deterministic,
@@ -267,6 +278,42 @@ def _noise_at(gumbel, tail_noise, i):
             None if tail_noise is None else tail_noise[i])
 
 
+def dec_actor_decode(
+    model: MultiAgentTransformer,
+    obs: torch.Tensor,
+    available_actions: Optional[torch.Tensor],
+    deterministic: bool = False,
+    *,
+    generator: Optional[torch.Generator] = None,
+    gumbel: Optional[torch.Tensor] = None,
+    tail_noise: Optional[torch.Tensor] = None,
+) -> DecodeResult:
+    """MAT-Dec's exact decode (JAX ``ar_decode`` with ``dec_actor``): no
+    position reads another's action, so the MLP actor's logits of all agents
+    come from one pass over ``obs (B, A, obs_dim)``, and every position is
+    sampled at once from the same noise as :func:`cached_decode` (the
+    Gumbel rows, and the Gaussian rows of the tail agents).  The discrete
+    families only (``MATConfig`` checks)."""
+    cfg = model.cfg
+    logits = model.decoder.mlp(obs)                                 # (B, A, adim)
+    if not deterministic:
+        gumbel, tail_noise = _draw_noise(cfg, obs.shape[0], obs.device, generator, gumbel,
+                                         tail_noise)
+    normal = None if deterministic or tail_noise is None else tail_noise.transpose(0, 1)
+    masked = D.mask_logits(logits, available_actions)
+    idx = (D.categorical_mode(masked) if deterministic
+           else D.categorical_sample_from_gumbel(masked, gumbel))
+    act, logp = idx[..., None].float(), D.categorical_log_prob(masked, idx)[..., None]
+    if cfg.action_type == SEMI_DISCRETE:
+        nd, std = cfg.n_discrete_agents, model.action_std()
+        mean = logits[:, nd:]
+        c_act = mean if deterministic else D.normal_sample_from_noise(mean, std, normal[:, nd:])
+        c_logp = D.normal_log_prob(mean, std, c_act)
+        act = torch.cat([act[:, :nd], c_act[..., -1:]], dim=1)
+        logp = torch.cat([logp[:, :nd], c_logp[..., -1:]], dim=1)
+    return DecodeResult(act, logp)
+
+
 # ---------------------------------------------------------------------------
 # Exact decode in one launch (mode="scan")
 # ---------------------------------------------------------------------------
@@ -288,9 +335,9 @@ def ar_decode(
     position with sampling between (:func:`_decode_step_path`), as the JAX
     decode does on its Pallas path.  It reads the same noise as
     :func:`cached_decode` (given, or drawn from ``generator`` in the same
-    order).  The JAX signature's ``obs`` is left out, as in
-    ``Decoder.forward``: only MAT-Dec's decoder reads it (``dec_actor``, not
-    ported: ROADMAP.md queue 1, item 3)."""
+    order).  The JAX signature's ``obs`` is left out: only MAT-Dec's
+    decoder reads it, and :func:`serve_decode` routes MAT-Dec to
+    :func:`dec_actor_decode`."""
     path = (_decode_step_path if model.cfg.action_type in CONTINUOUS_FAMILIES
             else _fused_ar_decode_path)
     return path(model, obs_rep, available_actions, deterministic,
@@ -369,13 +416,15 @@ def stride_decode(
     obs_rep: torch.Tensor,
     available_actions: Optional[torch.Tensor],
     stride: int = 2,
+    obs: Optional[torch.Tensor] = None,
 ) -> DecodeResult:
     """The reference's deterministic block-commit decode
     (``transformer_act.py:37-75``; JAX ``stride_decode``): decode agent 0
     alone, then commit blocks of ``stride`` discrete agents per full decoder
     pass (agents inside a block do not see each other's actions), then the
     continuous tail one at a time.  Every pass is the teacher-forced decoder,
-    whose attentions go through the attention kernel on the card."""
+    whose attentions go through the attention kernel on the card (MAT-Dec's
+    MLP actor on ``obs``)."""
     cfg = model.cfg
     if cfg.action_type not in (DISCRETE, SEMI_DISCRETE):
         raise NotImplementedError(
@@ -401,7 +450,7 @@ def stride_decode(
     bounds += [(t, t + 1) for t in range(s, A)]
 
     for s, e in bounds:
-        logits = model.decoder(shifted, obs_rep)[:, s:e]
+        logits = model.decoder(shifted, obs_rep, obs)[:, s:e]
         if e <= nd:
             masked = D.mask_logits(logits, available_actions[:, s:e])
             idx = torch.argmax(masked, dim=-1)                          # (B, e - s)
@@ -426,33 +475,39 @@ def parallel_act(
     obs_rep: torch.Tensor,
     action: torch.Tensor,
     available_actions: Optional[torch.Tensor],
+    obs: Optional[torch.Tensor] = None,
 ):
     """Teacher-forced log-probs and entropies in one decoder pass
     (``mat_dcml_tpu/models/decode.py::parallel_act``; ``transformer_act.py``
     ``*_parallel_act``).
 
-    ``obs_rep (B, A, D)``, ``action (B, A, act_out_dim)``.  Returns
-    ``(log_prob, entropy)``, each ``(B, A, act_prob_dim)``.
+    ``obs_rep (B, A, D)``, ``action (B, A, act_out_dim)``; ``obs (B, A,
+    obs_dim)``, which only MAT-Dec's actor reads.  Returns ``(log_prob,
+    entropy)``, each ``(B, A, act_prob_dim)``.
     """
     cfg = model.cfg
     B, A, adim = obs_rep.shape[0], cfg.n_agent, cfg.action_dim
+
+    def decoder(shifted):
+        return model.decoder(shifted, obs_rep, obs)
+
     if cfg.action_type == DISCRETE:
         idx = action[..., 0].long()
         onehot = torch.nn.functional.one_hot(idx, adim).float()
-        logits = model.decoder(_shift_with_start(onehot, B, A, adim), obs_rep)
+        logits = decoder(_shift_with_start(onehot, B, A, adim))
         logits = D.mask_logits(logits, available_actions)
         return (D.categorical_log_prob(logits, idx)[..., None],
                 D.categorical_entropy(logits)[..., None])
     if cfg.action_type == CONTINUOUS:
         shifted = torch.zeros(B, A, adim, device=obs_rep.device)
         shifted[:, 1:] = action[:, :-1]
-        mean = model.decoder(shifted, obs_rep)
+        mean = decoder(shifted)
         std = model.action_std()
         return (D.normal_log_prob(mean, std, action),
                 D.normal_entropy(mean, std).expand_as(mean))
     if cfg.action_type == AVAILABLE_CONTINUOUS:
         dd = cfg.discrete_dim
-        logits = model.decoder(_shift_with_start(action, B, A, adim), obs_rep)
+        logits = decoder(_shift_with_start(action, B, A, adim))
         if available_actions is not None:
             # the reference masks the full logits, continuous means included
             # (transformer_act.py:295-296)
@@ -470,7 +525,7 @@ def parallel_act(
     onehot = torch.nn.functional.one_hot(idx, adim).float()
     cont = action[:, nd:, :].expand(B, A - nd, adim)
     shifted = _shift_with_start(torch.cat([onehot, cont], dim=1), B, A, adim)
-    logits = model.decoder(shifted, obs_rep)
+    logits = decoder(shifted)
     d_logits = logits[:, :nd]
     if available_actions is not None:
         d_logits = D.mask_logits(d_logits, available_actions[:, :nd])

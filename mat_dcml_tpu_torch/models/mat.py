@@ -12,6 +12,16 @@ categorical, the tail agents Gaussian with ``std = sigmoid(log_std) * 0.5``);
 ``available_continuous`` (a one-hot over the first ``discrete_dim`` dims, then
 a Gaussian over the rest).
 
+The configuration fields beyond the recipe's: ``n_objective`` widens the
+encoder's value head to one value per objective (MO-MAT, DMO-MAT);
+``encode_state`` makes the encoder read ``state`` through
+``state_encoder`` instead of ``obs``; ``dec_actor`` replaces the decoder
+trunk with a per-agent MLP actor on ``obs`` (the MAT-Dec ablation,
+``ma_transformer.py:175-189``), one MLP for all agents with
+``share_actor``, else one per agent with its weights stacked on a leading
+``n_agent`` axis (JAX ``nn.vmap``), applied as one batched product.
+Only the modules a configuration calls hold parameters, as in flax.
+
 The trunk runs in ``MATConfig.dtype`` (``"float32"`` or ``"bfloat16"``, the
 mixed-precision mode the JAX package's benchmark runs); the parameters, the
 heads, attention scores and softmax and the distributions stay f32
@@ -23,11 +33,14 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from mat_dcml_tpu_torch.device import resolve_device
 from mat_dcml_tpu_torch.models.modules import (
     GAIN_ACT,
+    GAIN_OUT,
+    LN_EPS,
     DecodeBlock,
     Dense,
     EncodeBlock,
@@ -58,6 +71,10 @@ class MATConfig:
     action_type: str = DISCRETE
     semi_index: int = -1          # number of trailing continuous agents, negated
     discrete_dim: int = 2         # available_continuous: leading one-hot dims
+    encode_state: bool = False    # the encoder reads state, not obs
+    dec_actor: bool = False       # MAT-Dec: an MLP actor instead of the decoder trunk
+    share_actor: bool = False     # MAT-Dec: one MLP for all agents
+    n_objective: int = 1          # > 1: MO-MAT's vector-valued critic
     # the trunk's computation dtype; params, heads and distributions stay f32
     dtype: str = "float32"
 
@@ -66,6 +83,10 @@ class MATConfig:
             raise ValueError(f"action_type must be one of {ACTION_TYPES}, got {self.action_type!r}")
         if self.dtype not in TRUNK_DTYPES:
             raise ValueError(f"dtype must be one of {tuple(TRUNK_DTYPES)}, got {self.dtype!r}")
+        if self.dec_actor and self.action_type not in (DISCRETE, SEMI_DISCRETE):
+            raise NotImplementedError(
+                f"dec_actor with {self.action_type!r} actions is not ported yet (MAT-Dec runs "
+                "on DCML here; ROADMAP.md queue 1, item 10)")
 
     @property
     def trunk_dtype(self) -> torch.dtype:
@@ -135,27 +156,101 @@ class Head(nn.Module):
 
 
 class Encoder(nn.Module):
-    """Value head plus the shared representation."""
+    """Value head (``n_objective`` values an agent) plus the shared
+    representation, from ``obs``, or from ``state`` under ``encode_state``."""
 
     def __init__(self, cfg: MATConfig):
         super().__init__()
         dt = cfg.compute_dtype
-        self.obs_encoder = ObsEncoder(cfg.obs_dim, cfg.n_embd, dt)
+        self.encode_state = cfg.encode_state
+        if cfg.encode_state:
+            self.state_encoder = ObsEncoder(cfg.state_dim, cfg.n_embd, dt)
+        else:
+            self.obs_encoder = ObsEncoder(cfg.obs_dim, cfg.n_embd, dt)
         self.ln = layer_norm(cfg.n_embd, dt)
         self.blocks = nn.ModuleList(EncodeBlock(cfg.n_embd, cfg.n_head, dt)
                                     for _ in range(cfg.n_block))
-        self.head = Head(cfg.n_embd, 1)
+        self.head = Head(cfg.n_embd, cfg.n_objective)
 
     def forward(self, state: torch.Tensor, obs: torch.Tensor):
-        del state   # the DCML recipe encodes obs (encode_state=False)
-        rep = self.ln(self.obs_encoder(obs))
+        x = self.state_encoder(state) if self.encode_state else self.obs_encoder(obs)
+        rep = self.ln(x)
         for blk in self.blocks:
             rep = blk(rep)
         return self.head(rep), rep
 
 
+class DecActorMlp(nn.Module):
+    """MAT-Dec's actor (``ma_transformer.py:175-189``), always f32:
+    LN-Linear-GELU-LN-Linear-GELU-LN-Linear."""
+
+    def __init__(self, in_dim: int, n_embd: int, action_dim: int):
+        super().__init__()
+        self.LayerNorm_0 = layer_norm(in_dim)
+        self.Dense_0 = Dense(in_dim, n_embd, gain=GAIN_ACT)
+        self.LayerNorm_1 = layer_norm(n_embd)
+        self.Dense_1 = Dense(n_embd, n_embd, gain=GAIN_ACT)
+        self.LayerNorm_2 = layer_norm(n_embd)
+        self.Dense_2 = Dense(n_embd, action_dim)
+
+    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+        x = gelu(self.Dense_0(self.LayerNorm_0(obs)))
+        x = gelu(self.Dense_1(self.LayerNorm_1(x)))
+        return self.Dense_2(self.LayerNorm_2(x))
+
+
+class StackedDense(nn.Module):
+    """``n`` Dense layers, one an agent, as one batched product: ``kernel
+    (n, in, out)`` (a flax kernel with ``nn.vmap``'s leading axis), ``bias
+    (n, out)``; input ``(B, n, in)``, agent ``a`` through layer ``a``."""
+
+    def __init__(self, n: int, in_features: int, out_features: int, gain: float = GAIN_OUT):
+        super().__init__()
+        self.gain = gain
+        self.kernel = nn.Parameter(torch.empty(n, in_features, out_features))
+        self.bias = nn.Parameter(torch.zeros(n, out_features))
+        self.reset_parameters()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.einsum("bni,nio->bno", x, self.kernel) + self.bias
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        for k in self.kernel.data:   # each agent's (in, out) kernel its own orthogonal draw
+            nn.init.orthogonal_(k, self.gain, generator=generator)
+        nn.init.zeros_(self.bias)
+
+
+class StackedLayerNorm(nn.Module):
+    """``n`` LayerNorms (eps 1e-6), one an agent: ``scale``, ``bias (n, d)``."""
+
+    def __init__(self, n: int, d: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(n, d))
+        self.bias = nn.Parameter(torch.zeros(n, d))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x, x.shape[-1:], eps=LN_EPS) * self.scale + self.bias
+
+
+class StackedDecActorMlp(nn.Module):
+    """One :class:`DecActorMlp` an agent (JAX ``nn.vmap`` over stacked
+    parameters), all agents in one pass: ``(B, n_agent, in) -> (B, n_agent,
+    action_dim)``."""
+
+    def __init__(self, n_agent: int, in_dim: int, n_embd: int, action_dim: int):
+        super().__init__()
+        self.LayerNorm_0 = StackedLayerNorm(n_agent, in_dim)
+        self.Dense_0 = StackedDense(n_agent, in_dim, n_embd, gain=GAIN_ACT)
+        self.LayerNorm_1 = StackedLayerNorm(n_agent, n_embd)
+        self.Dense_1 = StackedDense(n_agent, n_embd, n_embd, gain=GAIN_ACT)
+        self.LayerNorm_2 = StackedLayerNorm(n_agent, n_embd)
+        self.Dense_2 = StackedDense(n_agent, n_embd, action_dim)
+
+    forward = DecActorMlp.forward
+
+
 class Decoder(nn.Module):
-    """Action-conditioned decoder."""
+    """Action-conditioned decoder, or MAT-Dec's MLP actor (``dec_actor``)."""
 
     def __init__(self, cfg: MATConfig):
         super().__init__()
@@ -163,6 +258,11 @@ class Decoder(nn.Module):
         dt = cfg.compute_dtype
         if cfg.action_type != DISCRETE:
             self.log_std = nn.Parameter(torch.ones(cfg.action_dim))
+        if cfg.dec_actor:
+            self.mlp = (DecActorMlp(cfg.obs_dim, cfg.n_embd, cfg.action_dim) if cfg.share_actor
+                        else StackedDecActorMlp(cfg.n_agent, cfg.obs_dim, cfg.n_embd,
+                                                cfg.action_dim))
+            return
         if cfg.action_type in (DISCRETE, SEMI_DISCRETE):
             self.action_encoder_nobias = Dense(cfg.action_input_dim, cfg.n_embd, gain=GAIN_ACT,
                                                bias=False, dtype=dt)
@@ -179,8 +279,12 @@ class Decoder(nn.Module):
             return gelu(self.action_encoder_nobias(shifted_action))
         return gelu(self.action_encoder_bias(shifted_action))
 
-    def forward(self, shifted_action: torch.Tensor, obs_rep: torch.Tensor) -> torch.Tensor:
-        """Teacher-forced pass -> ``(B, n_agent, action_dim)`` logits."""
+    def forward(self, shifted_action: torch.Tensor, obs_rep: torch.Tensor,
+                obs: torch.Tensor | None = None) -> torch.Tensor:
+        """Teacher-forced pass -> ``(B, n_agent, action_dim)`` logits; under
+        ``dec_actor`` the MLP actor's logits from ``obs`` alone."""
+        if self.cfg.dec_actor:
+            return self.mlp(obs)
         x = self.ln(self._embed_action(shifted_action))
         for blk in self.blocks:
             x = blk(x, obs_rep)
@@ -233,17 +337,17 @@ class MultiAgentTransformer(nn.Module):
         self.encoder = Encoder(cfg)
         self.decoder = Decoder(cfg)
         for mod in self.modules():
-            if isinstance(mod, Dense):
+            if isinstance(mod, (Dense, StackedDense)):
                 mod.reset_parameters(generator)
         self.to(dev)
 
     @property
     def device(self) -> torch.device:
-        return self.decoder.head.Dense_1.weight.device
+        return self.encoder.head.Dense_1.weight.device
 
     def forward(self, state: torch.Tensor, obs: torch.Tensor, shifted_action: torch.Tensor):
         v_loc, rep = self.encoder(state, obs)
-        return v_loc, rep, self.decoder(shifted_action, rep)
+        return v_loc, rep, self.decoder(shifted_action, rep, obs)
 
     def encode(self, state: torch.Tensor, obs: torch.Tensor):
         return self.encoder(state, obs)

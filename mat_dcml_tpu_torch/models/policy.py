@@ -26,7 +26,7 @@ from mat_dcml_tpu_torch.models.mat import MATConfig, MultiAgentTransformer
 
 
 class PolicyOutput(NamedTuple):
-    value: torch.Tensor      # (B, n_agent, 1)
+    value: torch.Tensor      # (B, n_agent, n_objective)
     action: torch.Tensor     # (B, n_agent, act_out_dim)
     log_prob: torch.Tensor   # (B, n_agent, act_prob_dim)
 
@@ -98,10 +98,10 @@ class TransformerPolicy:
 
     def evaluate_actions(self, state, obs, action, available_actions=None):
         """Teacher-forced ``(values, log_prob, entropy)``
-        (``ma_transformer.py:257-295``); entropy un-reduced ``(B, A,
-        act_prob_dim)``."""
+        (``ma_transformer.py:257-295``); values ``(B, A, n_objective)``,
+        entropy un-reduced ``(B, A, act_prob_dim)``."""
         v_loc, obs_rep = self.model.encode(state, obs)
-        logp, ent = parallel_act(self.model, obs_rep, action, available_actions)
+        logp, ent = parallel_act(self.model, obs_rep, action, available_actions, obs)
         return v_loc, logp, ent
 
     def get_values(self, state, obs) -> torch.Tensor:

@@ -14,8 +14,12 @@ setting to ``<out>.jsonl``.
 ``--model_dir`` is a run's checkpoint directory (``models/``; ``--ckpt_step``
 picks a step, the model flags must match the run) or a weights-only export
 (a directory holding ``policy_manifest.json``, whose config is used).
-Without it the policy is random-init, from ``--seed``.  The ``dmomat``
-widening of the JAX script is not ported (``n_objective`` is not).
+Without it the policy is random-init, from ``--seed``.  A ``dmomat``
+policy (its obs wider than the env's by ``n_objective``) reads obs and
+share_obs with fixed uniform preference weights appended, as the JAX
+script widens them (``benchmark_dcml.py:77-99``); ``--algorithm_name``
+names the algorithm of a checkpoint (an export's manifest carries its
+widths).
 
 Usage:
   python -m mat_dcml_tpu_torch.sweep_dcml --model_dir exports/dcml_as_mat \\
@@ -69,6 +73,7 @@ def parse_args(argv=None):
     p.add_argument("--n_block", type=int, default=2)
     p.add_argument("--n_embd", type=int, default=64)
     p.add_argument("--n_head", type=int, default=2)
+    p.add_argument("--algorithm_name", default="mat")
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
 
@@ -83,8 +88,8 @@ def load_sweep_policy(args, env: DCMLEnv) -> TransformerPolicy:
         policy.model.load_state_dict(params)
         print(f"loaded policy export from {args.model_dir}")
         return policy
-    run = RunConfig(n_block=args.n_block, n_embd=args.n_embd, n_head=args.n_head,
-                    device=str(device))
+    run = RunConfig(algorithm_name=args.algorithm_name, n_block=args.n_block,
+                    n_embd=args.n_embd, n_head=args.n_head, device=str(device))
     if args.model_dir:
         policy, step = restore_mat_policy(run, env, args.model_dir, args.ckpt_step,
                                           device=device)
@@ -95,14 +100,22 @@ def load_sweep_policy(args, env: DCMLEnv) -> TransformerPolicy:
                             generator=torch.Generator().manual_seed(args.seed))
 
 
-def make_sweep_run(env: DCMLEnv, policy: TransformerPolicy, n_steps: int, stride: int):
+def make_sweep_run(env: DCMLEnv, policy: TransformerPolicy, n_steps: int, stride: int,
+                   n_coef: int = 0):
     """One sweep runner reused across the settings (``benchmark_dcml.py::
     make_sweep_run``): ``run(data, generator=None, draws=None)`` replays
     ``data`` on ``env`` (one env, ``preset`` mode) from episode 0 for
     ``n_steps`` stride-decoded steps and returns ``(rewards, cts, payments)``,
     each ``(n_steps,)`` numpy.  The env's draws come from ``generator``, or
     from ``draws = (ResetDraws, [StepDraws] * n_steps)`` (a test replays the
-    JAX key chain so)."""
+    JAX key chain so).  ``n_coef > 0`` (a ``dmomat`` policy) appends
+    ``n_coef`` uniform preference weights to obs and share_obs."""
+
+    def widen(x):
+        if not n_coef:
+            return x
+        return torch.cat([x, torch.full((*x.shape[:-1], n_coef), 1.0 / n_coef,
+                                        dtype=x.dtype, device=x.device)], dim=-1)
 
     @torch.no_grad()
     def run(data: PresetData, generator=None, draws=None):
@@ -114,8 +127,8 @@ def make_sweep_run(env: DCMLEnv, policy: TransformerPolicy, n_steps: int, stride
         state, ts = env.reset(reset_draws, 0)
         out = []
         for t in range(n_steps):
-            action = policy.act_stride(ts.share_obs, ts.obs, ts.available_actions,
-                                       stride=stride).action
+            action = policy.act_stride(widen(ts.share_obs), widen(ts.obs),
+                                       ts.available_actions, stride=stride).action
             state, ts = env.step(state, action, step_draws[t])
             out.append(torch.stack([ts.reward[0, 0, 0], ts.delay[0], ts.payment[0]]))
         rewards, cts, payments = torch.stack(out).cpu().numpy().T
@@ -132,7 +145,9 @@ def main(argv=None):
     policy = load_sweep_policy(args, env)
     out_prefix = Path(args.out)
     out_prefix.parent.mkdir(parents=True, exist_ok=True)
-    sweep_run = make_sweep_run(env, policy, args.n_steps, args.stride)
+    # a dmomat policy's obs are wider than the env's by its preference weights
+    sweep_run = make_sweep_run(env, policy, args.n_steps, args.stride,
+                               n_coef=policy.cfg.obs_dim - env.obs_dim)
     w_cts, w_payments, records = [], [], []
     t0 = time.time()
     for i in range(args.n_iter):

@@ -47,6 +47,11 @@ class MujocoRunner(EpisodicRunner):
         if run.use_eval:
             raise NotImplementedError("use_eval: MuJoCo's evaluation is not ported yet "
                                       "(ROADMAP.md queue 1, item 10)")
+        dcml_only = [name for name in ("encode_state", "dec_actor", "share_actor")
+                     if getattr(run, name)] + (["n_objective"] if run.n_objective != 1 else [])
+        if dcml_only:
+            raise NotImplementedError(f"{', '.join(dcml_only)}: the port reads these on DCML "
+                                      "only (ROADMAP.md queue 1, item 10)")
         self.env_config = env_config
         super().__init__(run, ppo, log_fn)
 

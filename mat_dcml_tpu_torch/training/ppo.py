@@ -11,17 +11,35 @@ it is two Python loops over the same arithmetic.  Kept:
 - the clipped Huber value loss, ValueNorm updated on the full minibatch
   before normalising the targets (``mat_trainer.py:68-71``);
 - entropy; global-norm clipping with optax's rule (scale by
-  ``max_norm / norm`` only when ``norm >= max_norm``, no epsilon); Adam.
+  ``max_norm / norm`` only when ``norm >= max_norm``, no epsilon); Adam;
+- every switch of the JAX config, each with the JAX trainer's arithmetic
+  when set off: the clipped value loss (else the plain one), the Huber loss
+  (else ``0.5 e^2``), ValueNorm (PopArt, ``use_popart``, takes the same
+  ValueNorm path in the MAT trainer), the value and policy active masks
+  (else plain means), the grad-norm clip (the norm is still reported) and
+  the per-epoch recompute of returns (else one target computation before
+  the first epoch);
+- MO-MAT (``n_objective > 1``): a ValueNorm and GAE per objective channel,
+  the advantages scalarised with ``objective_weights`` (normalised to the
+  simplex; equal weights when empty), or with DMO-MAT's per-step
+  preference weights where the trajectory carries them; scalarised before
+  the advantage normalisation (``mo_combined_norm``) or after a
+  normalisation per channel;
+- ``use_linear_lr_decay``: optax's ``linear_schedule(lr, 0,
+  total_updates)``, which counts Adam steps (one a minibatch), so the lr
+  reaches 0 after ``total_updates`` minibatch steps, not updates;
+- ``weight_decay``: L2 added to the clipped gradient before Adam (optax's
+  ``add_decayed_weights`` between the clip and Adam), not AdamW; the
+  reported ``grad_norm`` is the norm before both.
 
 Adam is ``torch.optim.Adam(foreach=True)``: the same update as
 ``optax.adam`` (``m_hat / (sqrt(v_hat) + eps)``), the multi-tensor
-implementation on every device.  The JAX trainer's streaming devices
-(``update_stream_chunks``, ``grad_accum_steps``, ``target_stream_chunk``,
-``minibatch_layout="contiguous"``, ``update_offload``) give the same values
-up to summation order and are not ported: each minibatch is one pass.
-
-Only the recipe's path is ported: the JAX config's loss and target switches
-(``RECIPE_SWITCHES``) stay fields, and setting one off raises.
+implementation on every device; its ``weight_decay`` adds ``wd * p`` to the
+gradient it is given, as optax's chain does. The JAX trainer's streaming
+devices (``update_stream_chunks``, ``grad_accum_steps``,
+``target_stream_chunk``, ``minibatch_layout="contiguous"``,
+``update_offload``) give the same values up to summation order and are not
+ported: each minibatch is one pass.
 
 Randomness is an input: ``train`` takes the epochs' row permutations, or
 draws them from a generator.
@@ -33,6 +51,7 @@ import dataclasses
 import time
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from mat_dcml_tpu_torch.device import synchronize
@@ -49,7 +68,7 @@ from mat_dcml_tpu_torch.ops.normalize import (
 from mat_dcml_tpu_torch.training.minibatch import gather_rows, minibatch_rows, permutations
 from mat_dcml_tpu_torch.training.rollout import RolloutCollector, RolloutState, Trajectory
 
-# the switches of the JAX PPOConfig that the recipe keeps on
+# the loss and target switches of the JAX PPOConfig that the recipe keeps on
 RECIPE_SWITCHES = ("use_clipped_value_loss", "use_huber_loss", "use_valuenorm",
                    "use_value_active_masks", "use_policy_active_masks", "use_max_grad_norm",
                    "recompute_returns_per_epoch")
@@ -62,6 +81,7 @@ class PPOConfig:
 
     lr: float = 5e-5
     opti_eps: float = 1e-5
+    weight_decay: float = 0.0
     clip_param: float = 0.2
     ppo_epoch: int = 15
     num_mini_batch: int = 4
@@ -74,17 +94,24 @@ class PPOConfig:
     use_clipped_value_loss: bool = True
     use_huber_loss: bool = True
     use_valuenorm: bool = True
+    use_popart: bool = False
     use_value_active_masks: bool = True
     use_policy_active_masks: bool = True
     use_max_grad_norm: bool = True
+    use_linear_lr_decay: bool = False
     recompute_returns_per_epoch: bool = True
+    # MO-MAT: comma-separated scalarisation weights ("99,1"), normalised to
+    # the simplex; empty: equal weights; a count other than n_objective raises
+    objective_weights: str = ""
+    # MO-MAT: scalarise the raw per-channel advantages, then normalise once
+    # (True), or normalise each channel, then scalarise (False)
+    mo_combined_norm: bool = True
 
-    def __post_init__(self):
-        off = [name for name in RECIPE_SWITCHES if not getattr(self, name)]
-        if off:
-            raise NotImplementedError(
-                f"{', '.join(off)} off: only the recipe's update is ported "
-                "(ROADMAP.md queue 1, item 6)")
+    @property
+    def value_norm_on(self) -> bool:
+        """The MAT trainer's ValueNorm path: ``use_valuenorm`` or
+        ``use_popart`` (``ppo.py:299``)."""
+        return self.use_valuenorm or self.use_popart
 
 
 @dataclasses.dataclass
@@ -114,18 +141,58 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(t * t) for t in tensors))
 
 
+def parse_objective_weights(spec: str, n_objective: int) -> List[float]:
+    """``PPOConfig.objective_weights`` on the simplex (only their ratios
+    matter); empty: equal weights.  A count other than ``n_objective``
+    raises ``ValueError`` (``ppo.py:183-198``)."""
+    if not spec:
+        return [1.0 / n_objective] * n_objective
+    w = np.asarray([float(x) for x in spec.split(",")], np.float32)
+    if len(w) != n_objective:
+        raise ValueError(f"objective_weights has {len(w)} entries for {n_objective} objectives")
+    return (w / w.sum()).tolist()
+
+
 class MATTrainer:
-    def __init__(self, policy: TransformerPolicy, cfg: PPOConfig):
+    """``total_updates``: the lr schedule's length in Adam steps (the JAX
+    runner passes ``run.episodes``)."""
+
+    def __init__(self, policy: TransformerPolicy, cfg: PPOConfig, total_updates: int = 1):
         self.policy = policy
         self.cfg = cfg
+        self.n_objective = getattr(policy.cfg, "n_objective", 1)
+        self.objective_weights = torch.tensor(
+            parse_objective_weights(cfg.objective_weights, self.n_objective),
+            device=policy.device)
+        self.total_updates = max(int(total_updates), 1)
 
     @property
     def params(self) -> List[torch.nn.Parameter]:
         return list(self.policy.model.parameters())
 
     def init_state(self) -> TrainState:
-        opt = torch.optim.Adam(self.params, lr=self.cfg.lr, eps=self.cfg.opti_eps, foreach=True)
-        return TrainState(optimizer=opt, value_norm=value_norm_init(1, device=self.policy.device))
+        opt = torch.optim.Adam(self.params, lr=self.cfg.lr, eps=self.cfg.opti_eps,
+                               weight_decay=self.cfg.weight_decay, foreach=True)
+        return TrainState(optimizer=opt, value_norm=value_norm_init(self.n_objective,
+                                                                    device=self.policy.device))
+
+    def adam_steps(self, state: TrainState) -> int:
+        """Adam steps taken so far (optax's schedule count): the step count
+        Adam keeps with every parameter, on the host."""
+        st = state.optimizer.state.get(self.params[0], {})
+        return int(st["step"]) if "step" in st else 0
+
+    def lr_at(self, count: int) -> float:
+        """The lr of Adam step ``count`` (from 0): under
+        ``use_linear_lr_decay`` ``optax.linear_schedule(lr, 0,
+        total_updates)(count)`` in f32, as optax computes it, ``lr * (1 -
+        min(count, total) / total)``."""
+        cfg = self.cfg
+        if not cfg.use_linear_lr_decay:
+            return cfg.lr
+        total = np.float32(self.total_updates)
+        frac = np.float32(1.0) - np.float32(min(count, self.total_updates)) / total
+        return float(np.float32(cfg.lr) * frac)
 
     def state_dict(self, state: TrainState) -> Dict[str, Any]:
         """The whole training state, as live tensors (a checkpoint copies
@@ -196,8 +263,11 @@ class MATTrainer:
         flat["active_masks"] = flatten_rows(traj.active_masks[:-1])
 
         steps = []
+        fixed = None if cfg.recompute_returns_per_epoch else self._targets(
+            state, traj, rollout_state)
         for epoch in range(cfg.ppo_epoch):
-            adv_flat, ret_flat = self._targets(state, traj, rollout_state)
+            adv_flat, ret_flat = fixed if fixed is not None else self._targets(
+                state, traj, rollout_state)
             for rows in minibatch_rows(perms[epoch], cfg.num_mini_batch):
                 steps.append(self._apply_minibatch(
                     state, gather_rows(flat, rows), adv_flat[rows], ret_flat[rows]))
@@ -208,27 +278,42 @@ class MATTrainer:
 
     def _targets(self, state: TrainState, traj: Trajectory, rollout_state: RolloutState):
         """Bootstrap, GAE and advantage normalisation over active entries
-        (``mat_trainer.py:180-197``), flattened E-major."""
+        (``mat_trainer.py:180-197``), flattened E-major; with several
+        objectives the advantages are scalarised (``ppo.py:308-333``)."""
         cfg = self.cfg
         T, E = traj.rewards.shape[:2]
         with torch.no_grad():
             next_values = self.policy.get_values(rollout_state.share_obs, rollout_state.obs)
-            values_all = value_norm_denormalize(
-                state.value_norm, torch.cat([traj.values, next_values[None]], dim=0))
+            values_all = torch.cat([traj.values, next_values[None]], dim=0)
+            if cfg.value_norm_on:
+                values_all = value_norm_denormalize(state.value_norm, values_all)
             adv, returns = compute_gae(traj.rewards, values_all, traj.masks, cfg.gamma, cfg.gae_lambda)
+            w = None
+            if self.n_objective > 1:
+                # DMO-MAT's per-step weights (broadcast over agents) when
+                # collected, else the static ones
+                w = (traj.objective_coefficients[:, :, None, :]
+                     if traj.objective_coefficients is not None else self.objective_weights)
+                if cfg.mo_combined_norm:
+                    adv = (adv * w).sum(-1, keepdim=True)
             active = traj.active_masks[:-1]
             axes = tuple(range(adv.dim() - 1))
             denom = active.sum()
             mean = (adv * active).sum(axes) / denom
             var = (((adv - mean) ** 2) * active).sum(axes) / denom
             adv_norm = (adv - mean) / (torch.sqrt(var) + 1e-5)
+            if w is not None and not cfg.mo_combined_norm:
+                adv_norm = (adv_norm * w).sum(-1, keepdim=True)
         flat = lambda x: x.transpose(0, 1).reshape(T * E, *x.shape[2:])   # noqa: E731
         return flat(adv_norm), flat(returns)
 
     def _apply_minibatch(self, state: TrainState, batch, adv_b, ret_b):
         cfg = self.cfg
-        state.value_norm = value_norm_update(state.value_norm, ret_b.reshape(-1, ret_b.shape[-1]))
-        ret_target = value_norm_normalize(state.value_norm, ret_b)
+        ret_target = ret_b
+        if cfg.value_norm_on:
+            state.value_norm = value_norm_update(state.value_norm,
+                                                 ret_b.reshape(-1, ret_b.shape[-1]))
+            ret_target = value_norm_normalize(state.value_norm, ret_b)
         active = batch["active_masks"]
         active_sum = active.sum()
 
@@ -238,14 +323,25 @@ class MATTrainer:
         surr1 = ratio * adv_b
         surr2 = torch.clamp(ratio, 1.0 - cfg.clip_param, 1.0 + cfg.clip_param) * adv_b
         surr = torch.minimum(surr1, surr2).sum(-1, keepdim=True)
-        policy_loss = -(surr * active).sum() / active_sum
-        entropy = (ent * active).sum() / active_sum
+        if cfg.use_policy_active_masks:
+            policy_loss = -(surr * active).sum() / active_sum
+            entropy = (ent * active).sum() / active_sum
+        else:
+            policy_loss = -surr.mean()
+            entropy = ent.mean()
+
+        def value_err(e):
+            return huber_loss(e, cfg.huber_delta) if cfg.use_huber_loss else 0.5 * e * e
 
         v_old = batch["values"]
-        v_clipped = v_old + torch.clamp(values - v_old, -cfg.clip_param, cfg.clip_param)
-        vl = torch.maximum(huber_loss(ret_target - values, cfg.huber_delta),
-                           huber_loss(ret_target - v_clipped, cfg.huber_delta))
-        value_loss = (vl * active).sum() / active_sum
+        vl = value_err(ret_target - values)
+        if cfg.use_clipped_value_loss:
+            v_clipped = v_old + torch.clamp(values - v_old, -cfg.clip_param, cfg.clip_param)
+            vl = torch.maximum(vl, value_err(ret_target - v_clipped))
+        if cfg.use_value_active_masks:
+            value_loss = (vl * active).sum() / active_sum
+        else:
+            value_loss = vl.mean()
         loss = policy_loss - entropy * cfg.entropy_coef + value_loss * cfg.value_loss_coef
 
         opt = state.optimizer
@@ -255,11 +351,15 @@ class MATTrainer:
         grads = [p.grad for p in params]
         with torch.no_grad():
             gnorm = global_norm(grads)
-            # optax.clip_by_global_norm: select(norm < max, g, g / norm * max)
-            keep = gnorm < cfg.max_grad_norm
-            for g in grads:
-                g.copy_(torch.where(keep, g, g / gnorm * cfg.max_grad_norm))
+            if cfg.use_max_grad_norm:
+                # optax.clip_by_global_norm: select(norm < max, g, g / norm * max)
+                keep = gnorm < cfg.max_grad_norm
+                for g in grads:
+                    g.copy_(torch.where(keep, g, g / gnorm * cfg.max_grad_norm))
             before = [p.detach().clone() for p in params]
+            if cfg.use_linear_lr_decay:
+                for group in opt.param_groups:
+                    group["lr"] = self.lr_at(self.adam_steps(state))
             opt.step()
             pnorm = global_norm(params)
             unorm = global_norm(torch._foreach_sub([p.detach() for p in params], before))

@@ -23,10 +23,16 @@ JAX runner:
   (``base_runner.py:941-947``), its records written to ``metrics.jsonl``;
   :meth:`DCMLRunner.evaluate` is ``dcml_runner.py``'s deterministic protocol.
 
-``DCMLRunner`` trains on the DCML env (``mat``, or the ``random``
-baseline) and evaluates; ``training/mujoco_runner.py::MujocoRunner`` trains
-``mat`` on multi-agent MuJoCo lite.  Not ported yet: telemetry, fused
-dispatch, the dispatch watchdog (ROADMAP.md queue 1, items 12-13).
+``DCMLRunner`` trains the MAT family on the DCML env as the JAX runner
+builds it (``MAT_DCML_ALGOS``: ``mat``; ``mat_dec``, MAT-Dec with one MLP
+actor for all agents; ``momat``, MO-MAT's two-objective critic on the
+(completion time, payment) channels; ``dmomat``, MO-MAT with per-episode
+preference weights appended to obs and share_obs), or the ``random``
+baseline, and evaluates; ``training/mujoco_runner.py::MujocoRunner`` trains
+``mat`` on multi-agent MuJoCo lite. MO runs add
+``average_step_objective_<i>`` to each record (``base_runner.py:900-914``).
+Not ported yet: telemetry, fused dispatch, the dispatch watchdog (ROADMAP.md
+queue 1, items 12-13).
 
 Randomness: the weights come from a CPU ``torch.Generator`` seeded with
 ``--seed`` (so they are the same on every device); the env, policy noise and
@@ -60,6 +66,7 @@ from mat_dcml_tpu_torch.training.resilience import (
 from mat_dcml_tpu_torch.training.rollout import RolloutCollector
 
 RESUME_MODES = ("strict", "auto")
+MAT_DCML_ALGOS = ("mat", "mat_dec", "momat", "dmomat")
 
 
 def check_run(run: RunConfig, algorithms=("mat",)) -> None:
@@ -86,11 +93,22 @@ def check_run(run: RunConfig, algorithms=("mat",)) -> None:
 
 def build_mat_policy(run: RunConfig, env: DCMLEnv, device=None,
                      generator: Optional[torch.Generator] = None) -> TransformerPolicy:
-    check_run(run)
+    """The DCML policy of ``run.algorithm_name`` in the MAT family, as the JAX
+    runner builds it (``mat_dcml_tpu/training/runner.py:58-94``)."""
+    check_run(run, MAT_DCML_ALGOS)
+    algo = run.algorithm_name
+    n_objective = 2 if algo in ("momat", "dmomat") else run.n_objective
+    # dmomat conditions the policy on the preference weights, appended to
+    # both obs and share_obs
+    widen = n_objective if algo == "dmomat" else 0
     cfg = MATConfig(
-        n_agent=env.n_agents, obs_dim=env.obs_dim, state_dim=env.share_obs_dim,
+        n_agent=env.n_agents, obs_dim=env.obs_dim + widen, state_dim=env.share_obs_dim + widen,
         action_dim=env.action_dim, n_block=run.n_block, n_embd=run.n_embd, n_head=run.n_head,
         action_type=SEMI_DISCRETE, semi_index=-env.cfg.consts.extra_agent,
+        encode_state=run.encode_state,
+        dec_actor=run.dec_actor or algo == "mat_dec",
+        share_actor=run.share_actor or algo == "mat_dec",
+        n_objective=n_objective,
         dtype=run.model_dtype,
     )
     return TransformerPolicy(cfg, decode_mode=run.decode_mode, device=device, generator=generator)
@@ -127,7 +145,8 @@ class EpisodicRunner:
         self.env = self.make_env()
         self.policy = self.make_policy(torch.Generator().manual_seed(run.seed))
         self.trainer = self.make_trainer(ppo)
-        self.collector = RolloutCollector(self.env, self.policy, run.episode_length)
+        self.collector = RolloutCollector(self.env, self.policy, run.episode_length,
+                                          dynamic_coefficients=run.algorithm_name == "dmomat")
         self.run_dir = (Path(run.run_dir) / run.env_name / run.scenario / run.algorithm_name
                         / run.experiment_name)
         self.metrics_path = self.run_dir / "metrics.jsonl"
@@ -145,7 +164,7 @@ class EpisodicRunner:
         raise NotImplementedError
 
     def make_trainer(self, ppo: PPOConfig):
-        return MATTrainer(self.policy, ppo)
+        return MATTrainer(self.policy, ppo, total_updates=self.run_cfg.episodes)
 
     def evaluate(self, n_steps: int = 100, seed: int = 0, stride: Optional[int] = None) -> dict:
         raise NotImplementedError(f"{type(self).__name__} has no evaluation yet "
@@ -268,6 +287,9 @@ class EpisodicRunner:
                         "step_time_collect": collect_s,
                         "step_time_train": train_s,
                     }
+                    for k, v in stats.items():   # per-objective step means (MO)
+                        if k.startswith("step_objective_"):
+                            record[f"average_step_objective_{k.split('_')[2]}"] = v
                     if agg["n_done"] > 0:
                         record["aver_episode_rewards"] = agg["done_reward_sum"] / agg["n_done"]
                         record["aver_episode_delays"] = agg["done_delay_sum"] / agg["n_done"]
@@ -301,10 +323,11 @@ class EpisodicRunner:
 
 
 class DCMLRunner(EpisodicRunner):
-    """The DCML recipe: the worker-selection env and the semi-discrete MAT,
-    or the random baseline (``algorithm_name="random"``)."""
+    """The DCML recipe: the worker-selection env and the semi-discrete MAT
+    family (``MAT_DCML_ALGOS``), or the random baseline
+    (``algorithm_name="random"``)."""
 
-    ALGORITHMS = ("mat", "random")
+    ALGORITHMS = MAT_DCML_ALGOS + ("random",)
 
     def __init__(self, run: RunConfig, ppo: PPOConfig, log_fn=print,
                  env_config: DCMLEnvConfig = DCMLEnvConfig()):
@@ -327,7 +350,7 @@ class DCMLRunner(EpisodicRunner):
             from mat_dcml_tpu_torch.training.random_baseline import RandomTrainer
 
             return RandomTrainer(self.policy)
-        return MATTrainer(self.policy, ppo)
+        return super().make_trainer(ppo)
 
     # ----------------------------------------------------------------- eval
 
@@ -341,30 +364,37 @@ class DCMLRunner(EpisodicRunner):
         (``scan``: one ``ar_decode`` launch a step on the card), or with
         ``stride`` the reference's block-commit decode (teacher-forced
         passes through the attention kernel).  The envs and their draws come
-        from a generator seeded ``seed + 13``, apart from the run's."""
+        from a generator seeded ``seed + 13``, apart from the run's; a
+        ``dmomat`` policy reads obs and share_obs widened by the preference
+        weights drawn at the reset, fixed for the whole evaluation
+        (``mat_dcml_tpu/training/runner.py:240-246``)."""
         E = self.run_cfg.n_rollout_threads
         gen = torch.Generator(device=self.device).manual_seed(seed + 13)
-        env = self.env
-        env_states, ts = env.reset(env.draw_reset(E, gen))
+        env, col = self.env, self.collector
+        st = col.init_state(E, generator=gen)
+        env_states, coefs = st.env_states, st.objective_coefficients
 
-        def act(ts):
+        def act(st):
             with torch.no_grad():
                 if stride is None:
-                    return self.policy.get_actions(ts.share_obs, ts.obs, ts.available_actions,
+                    return self.policy.get_actions(st.share_obs, st.obs, st.available_actions,
                                                    deterministic=True).action
-                return self.policy.act_stride(ts.share_obs, ts.obs, ts.available_actions,
+                return self.policy.act_stride(st.share_obs, st.obs, st.available_actions,
                                               stride=stride).action
 
-        act(ts)   # warm-up: the first call on the card loads the kernels
+        act(st)   # warm-up: the first call on the card loads the kernels
         infer_time = 0.0
         per_step = []
         for _ in range(n_steps):
             synchronize(self.device)   # the env step queued before is not the call's
             t0 = time.perf_counter()
-            action = act(ts)
+            action = act(st)
             synchronize(self.device)
             infer_time += time.perf_counter() - t0
             env_states, ts = env.step(env_states, action, env.draw_step(E, gen))
+            st = st._replace(obs=col.augment_share_obs(ts.obs, coefs),
+                             share_obs=col.augment_share_obs(ts.share_obs, coefs),
+                             available_actions=ts.available_actions)
             per_step.append(torch.stack([ts.reward.sum(-1).mean(-1), ts.delay, ts.payment,
                                          ts.done.all(dim=1).float()]))
         r, d, p, done = torch.stack(per_step).cpu().numpy().transpose(1, 0, 2)  # (4, n_steps, E)

@@ -11,9 +11,9 @@
   summation order only); then PPO updates from the same trajectory, weights
   and permutations.  One minibatch step's metrics are computed on the same
   weights on both sides and are held as ``tests/test_torch_training.py``
-  holds DCML's (``_compare_metrics``: rounding only).  After the whole
+  holds DCML's (``compare_update_metrics``: rounding only).  After the whole
   update (2 epochs x 2 minibatches) the weights are held as DCML's
-  (``_param_diff``, 0.01 lr a step) and the metrics to rtol 1e-4: they are
+  (``param_diff``, 0.01 lr a step) and the metrics to rtol 1e-4: they are
   averaged over minibatches that run on weights the earlier Adam steps moved,
   and an entry whose gradient sits near Adam's eps (1e-5) takes a step that
   rounding moves by about 1% of lr (measured 1.2e-5 at lr 1e-3, on the
@@ -41,8 +41,13 @@ from mat_dcml_tpu_torch import train_mujoco
 from mat_dcml_tpu_torch.envs.mamujoco import lite
 from mat_dcml_tpu_torch.models.mat import MATConfig
 from mat_dcml_tpu_torch.training import rollout as trollout
-from tests.test_torch_training import LR, _compare_metrics, _param_diff, _policy, _update
-from tests.torch_port_helpers import jax_params, replay_family_noise
+from tests.test_torch_training import LR, _policy, _update
+from tests.torch_port_helpers import (
+    compare_update_metrics,
+    jax_params,
+    param_diff,
+    replay_family_noise,
+)
 
 ATOL = 1e-5
 E, T = 4, 4   # the sizes _update (tests/test_torch_training.py) permutes over
@@ -158,13 +163,13 @@ def test_collect_matches_jax(collected):
 
 def test_one_minibatch_step_matches_jax(collected):
     jstate, jmet, policy, state, met = _update(collected, ppo_epoch=1, num_mini_batch=1)
-    _compare_metrics(jmet, met)
+    compare_update_metrics(jmet, met)
 
 
 def test_update_matches_jax(collected):
     jstate, jmet, policy, state, met = _update(collected, ppo_epoch=2, num_mini_batch=2)
     steps = 2 * 2
-    assert _param_diff(jstate, policy, steps) <= 0.01 * LR * steps
+    assert param_diff(jstate, policy, LR, steps) <= 0.01 * LR * steps
     for name in ("value_loss", "policy_loss", "dist_entropy", "grad_norm", "ratio",
                  "param_norm", "update_ratio", "nonfinite_grads"):
         np.testing.assert_allclose(float(getattr(met, name)), float(getattr(jmet, name)),
@@ -193,8 +198,19 @@ def test_train_mujoco_defaults():
 
 @pytest.mark.parametrize("flags", [["--faulty_node", "1"], ["--eval_faulty_node", "0,1"],
                                    ["--random_order"], ["--backend", "gym"],
-                                   ["--use_huber_loss", "false"]],
+                                   ["--minibatch_layout", "contiguous"]],
                          ids=["faulty_node", "eval_faulty_node", "random_order", "gym", "switch"])
 def test_train_mujoco_rejects_what_is_not_ported(flags):
     with pytest.raises((SystemExit, NotImplementedError)):
         train_mujoco.parse(["--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("flags", [["--dec_actor", "true"], ["--encode_state", "true"],
+                                   ["--n_objective", "2"]],
+                         ids=["dec_actor", "encode_state", "n_objective"])
+def test_train_mujoco_rejects_dcml_model_fields(tmp_path, flags):
+    """MAT-Dec, ``encode_state`` and MO critics are read on DCML only: the
+    MuJoCo runner rejects them before it trains."""
+    with pytest.raises(NotImplementedError, match="DCML only"):
+        train_mujoco.main(["--device", "cpu", "--run_dir", str(tmp_path), *flags])
+    assert not (tmp_path / "mujoco").exists()

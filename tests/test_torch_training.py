@@ -22,7 +22,7 @@ semi-discrete) but narrow (n_embd 16, 2 blocks), E = 4 envs, T = 4 steps,
   1.6e-6 and 1.9e-6 at lr 1e-3).  A wrong gradient sign or a skipped
   minibatch moves an entry by ``~2 lr`` per step and fails either bound.
   The key projections' biases, whose exact gradient is 0, are the exception
-  (``_param_diff``).
+  (``tests/torch_port_helpers.py::param_diff``).
   Metrics to rtol 1e-5 with atol 1e-6: the policy loss is a mean of
   normalised (unit-scale) advantages that cancels to near 0 on the first
   step, so only an absolute bound means anything there.
@@ -41,7 +41,7 @@ from mat_dcml_tpu.models.policy import TransformerPolicy as JaxPolicy
 from mat_dcml_tpu.training.ppo import MATTrainer as JaxTrainer
 from mat_dcml_tpu.training.ppo import PPOConfig as JaxPPOConfig
 from mat_dcml_tpu.training.rollout import RolloutCollector as JaxCollector
-from mat_dcml_tpu_torch.bridge import params_from_jax, params_to_jax
+from mat_dcml_tpu_torch.bridge import params_from_jax
 from mat_dcml_tpu_torch.config import parse_cli
 from mat_dcml_tpu_torch.envs.dcml import env as tenv
 from mat_dcml_tpu_torch.envs.dcml.constants import DCMLConsts
@@ -49,10 +49,12 @@ from mat_dcml_tpu_torch.models.policy import TransformerPolicy
 from mat_dcml_tpu_torch.training import rollout as trollout
 from mat_dcml_tpu_torch.training.ppo import RECIPE_SWITCHES, MATTrainer, PPOConfig
 from tests.torch_port_helpers import (
+    compare_update_metrics,
     configs,
     jax_params,
     jax_reset_draws,
     jax_step_draws,
+    param_diff,
     replay_noise,
 )
 
@@ -64,7 +66,6 @@ ATOL = 1e-5
 VALUE_ATOL = 1e-4
 LR = 1e-3
 ONE_STEP_ATOL = 0.005 * LR
-METRIC_RTOL = 1e-5
 
 
 def _policy(tcfg, params):
@@ -154,10 +155,11 @@ def _torch_rollout_state(rs, st_like):
                             share_obs=torch.from_numpy(np.array(rs.share_obs)))
 
 
-def _update(collected, ppo_epoch, num_mini_batch, key=7):
-    """The same update on both sides; returns the new weights and metrics."""
+def _update(collected, ppo_epoch, num_mini_batch, key=7, **switches):
+    """The same update on both sides (``switches``: PPOConfig fields set on
+    both); returns the new weights and metrics."""
     jcfg, tcfg, params = collected["jcfg"], collected["tcfg"], collected["params"]
-    common = dict(lr=LR, ppo_epoch=ppo_epoch, num_mini_batch=num_mini_batch)
+    common = dict(lr=LR, ppo_epoch=ppo_epoch, num_mini_batch=num_mini_batch, **switches)
     jtrainer = JaxTrainer(JaxPolicy(jcfg, decode_mode="cached"),
                           JaxPPOConfig(update_stream_chunks=0, target_stream_chunk=0, **common))
     k = jax.random.key(key)
@@ -174,51 +176,23 @@ def _update(collected, ppo_epoch, num_mini_batch, key=7):
     return jstate, jmet, policy, state, met
 
 
-def _param_diff(jstate, policy, steps):
-    """Max |weight difference| over the weights whose gradient is not 0 by
-    construction.  A key projection's bias shifts every score of a query row
-    by the same amount, which the softmax cancels: its exact gradient is 0,
-    and each side's is rounding noise that Adam scales up to steps of as much
-    as lr (two JAX runs that only sum in another order differ there by 1.7
-    lr).  Those are held to the most two Adam runs can differ, 2 lr a step."""
-    mine = jax.tree_util.tree_leaves_with_path(params_to_jax(policy.model.state_dict())["params"])
-    ref = jax.tree_util.tree_leaves(jax.device_get(jstate.params)["params"])
-    assert len(mine) == len(ref)
-    worst = 0.0
-    for (path, a), b in zip(mine, ref):
-        d = float(np.abs(a - np.asarray(b)).max())
-        if "key_p" in jax.tree_util.keystr(path) and path[-1].key == "bias":
-            assert d <= 2 * LR * steps, jax.tree_util.keystr(path)
-        else:
-            worst = max(worst, d)
-    return worst
-
-
 def _moved(jstate, params):
     return max(float(np.abs(np.asarray(a) - np.asarray(b)).max()) for a, b in zip(
         jax.tree_util.tree_leaves(jstate.params), jax.tree_util.tree_leaves(params)))
 
 
-def _compare_metrics(jmet, met):
-    for name in ("value_loss", "policy_loss", "dist_entropy", "grad_norm", "ratio",
-                 "param_norm", "nonfinite_grads"):
-        np.testing.assert_allclose(float(getattr(met, name)), float(getattr(jmet, name)),
-                                   rtol=METRIC_RTOL, atol=1e-6, err_msg=name)
-    np.testing.assert_allclose(float(met.update_ratio), float(jmet.update_ratio), rtol=1e-4)
-
-
 def test_one_minibatch_step_matches_jax(collected):
     jstate, jmet, policy, state, met = _update(collected, ppo_epoch=1, num_mini_batch=1)
     assert _moved(jstate, collected["params"]) > 0.5 * LR      # the step did move the weights
-    assert _param_diff(jstate, policy, 1) <= ONE_STEP_ATOL
-    _compare_metrics(jmet, met)
+    assert param_diff(jstate, policy, LR, 1) <= ONE_STEP_ATOL
+    compare_update_metrics(jmet, met)
 
 
 def test_full_update_matches_jax(collected):
     jstate, jmet, policy, state, met = _update(collected, ppo_epoch=2, num_mini_batch=2)
     steps = 2 * 2
-    assert _param_diff(jstate, policy, steps) <= 0.01 * LR * steps
-    _compare_metrics(jmet, met)
+    assert param_diff(jstate, policy, LR, steps) <= 0.01 * LR * steps
+    compare_update_metrics(jmet, met)
     vn = jstate.value_norm
     for a, b in zip(state.value_norm, (vn.running_mean, vn.running_mean_sq, vn.debiasing_term)):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5)
@@ -226,11 +200,20 @@ def test_full_update_matches_jax(collected):
 
 
 @pytest.mark.parametrize("switch", RECIPE_SWITCHES)
-def test_switch_off_the_recipe_raises(switch):
-    """Only the recipe's update is ported: a loss or target switch of the JAX
-    config set off it raises, from the config and from the command line."""
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md queue 1, item 6"):
-        PPOConfig(**{switch: False})
-    with pytest.raises(NotImplementedError, match=switch):
-        parse_cli(["--device", "cpu", f"--{switch}", "false"])
-    assert getattr(PPOConfig(**{switch: True}), switch)
+def test_switch_off_the_recipe_raises(collected, switch):
+    """Each loss or target switch of the JAX config set off the recipe no
+    longer raises (its name is kept from when it did): from the config and
+    from the command line it sets the field, and the update with it off
+    matches JAX's to the bounds of ``test_full_update_matches_jax``."""
+    assert not getattr(PPOConfig(**{switch: False}), switch)
+    _, ppo = parse_cli(["--device", "cpu", f"--{switch}", "false"])
+    assert not getattr(ppo, switch)
+    jstate, jmet, policy, state, met = _update(collected, ppo_epoch=2, num_mini_batch=2,
+                                               **{switch: False})
+    steps = 2 * 2
+    assert _moved(jstate, collected["params"]) > 0.5 * LR
+    assert param_diff(jstate, policy, LR, steps) <= 0.01 * LR * steps
+    compare_update_metrics(jmet, met)
+    vn = jstate.value_norm
+    for a, b in zip(state.value_norm, (vn.running_mean, vn.running_mean_sq, vn.debiasing_term)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5)

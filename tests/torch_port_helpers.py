@@ -43,8 +43,8 @@ def jax_params(jcfg, seed=0):
     def redraw(path, leaf):
         name = str(path[-1].key)
         shape = leaf.shape
-        if name == "kernel":
-            arr = rng.normal(size=shape) / np.sqrt(shape[0])
+        if name == "kernel":   # (in, out), or (n_agent, in, out) stacked
+            arr = rng.normal(size=shape) / np.sqrt(shape[-2])
         elif name == "scale":
             arr = 1.0 + 0.1 * rng.normal(size=shape)
         else:   # bias, log_std
@@ -301,3 +301,90 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+# ------------------------------------------------------------ PPO updates
+
+def jax_trajectory(traj):
+    """The JAX ``Trajectory`` of a port trajectory (numpy leaves)."""
+    from mat_dcml_tpu.training.rollout import Trajectory as JaxTrajectory
+
+    f = {k: np.asarray(getattr(traj, k).numpy()) for k in (
+        "share_obs", "obs", "available_actions", "actions", "log_probs", "values", "rewards",
+        "masks", "active_masks", "delays", "payments", "dones")}
+    coefs = traj.objective_coefficients
+    return JaxTrajectory(**f, objective_coefficients=None if coefs is None else coefs.numpy())
+
+
+def jax_rollout_state(st):
+    """What the JAX update reads of a port rollout state (its bootstrap
+    inputs), as a JAX ``RolloutState``."""
+    from mat_dcml_tpu.training.rollout import RolloutState as JaxRolloutState
+
+    return JaxRolloutState(env_states=None, obs=st.obs.numpy(), share_obs=st.share_obs.numpy(),
+                           available_actions=st.available_actions.numpy(),
+                           mask=st.mask.numpy(), rng=None)
+
+
+def updates_vs_jax(jcfg, params, policy, traj, rollout_state, ppo_kw, n_updates=1,
+                   total_updates=1, key=7):
+    """``n_updates`` PPO updates of the same trajectory on both sides from
+    the same weights (``policy`` holds them, bridged), the JAX epochs'
+    permutations replayed.  ``traj`` and ``rollout_state`` are the port's
+    (``traj.objective_coefficients`` carried to JAX).  Returns ``(jax state,
+    jax metrics, port state, port metrics)`` after the last update."""
+    from mat_dcml_tpu.models.policy import TransformerPolicy as JaxPolicy
+    from mat_dcml_tpu.training.ppo import MATTrainer as JaxTrainer
+    from mat_dcml_tpu.training.ppo import PPOConfig as JaxPPOConfig
+    from mat_dcml_tpu_torch.training.ppo import MATTrainer, PPOConfig
+
+    jtrainer = JaxTrainer(JaxPolicy(jcfg, decode_mode="cached"),
+                          JaxPPOConfig(update_stream_chunks=0, target_stream_chunk=0, **ppo_kw),
+                          total_updates=total_updates)
+    trainer = MATTrainer(policy, PPOConfig(**ppo_kw), total_updates=total_updates)
+    train = jax.jit(jtrainer.train)
+    jtraj, jrs = jax_trajectory(traj), jax_rollout_state(rollout_state)
+    jstate, state = jtrainer.init_state(params), trainer.init_state()
+    n_rows = traj.rewards.shape[0] * traj.rewards.shape[1]
+    for u in range(n_updates):
+        k = jax.random.key(key + u)
+        jstate, jmet = train(jstate, jtraj, jrs, k)
+        perms = torch.from_numpy(np.stack([
+            np.asarray(jax.random.permutation(ke, n_rows))
+            for ke in jax.random.split(k, trainer.cfg.ppo_epoch)])).long()
+        state, met = trainer.train(state, traj, rollout_state, perms=perms)
+    return jstate, jmet, state, met
+
+
+def param_diff(jstate, policy, lr, steps):
+    """Max |weight difference| of the port's weights against the JAX
+    state's, over the weights whose exact gradient is not 0; the key
+    projections' biases (gradient 0 but for rounding noise, which Adam
+    scales up to steps of lr; two JAX runs that only sum in another order
+    differ there by 1.7 lr) are held to 2 lr a step."""
+    from mat_dcml_tpu_torch.bridge import params_to_jax
+
+    mine = jax.tree_util.tree_leaves_with_path(params_to_jax(policy.model.state_dict())["params"])
+    ref = jax.tree_util.tree_leaves(jax.device_get(jstate.params)["params"])
+    assert len(mine) == len(ref)
+    worst = 0.0
+    for (path, a), b in zip(mine, ref):
+        assert a.shape == np.shape(b), jax.tree_util.keystr(path)
+        d = float(np.abs(a - np.asarray(b)).max())
+        if "key_p" in jax.tree_util.keystr(path) and path[-1].key == "bias":
+            assert d <= 2 * lr * steps, jax.tree_util.keystr(path)
+        else:
+            worst = max(worst, d)
+    return worst
+
+
+def compare_update_metrics(jmet, met, rtol=1e-5, ratio_atol=0.0):
+    """The update's metrics against JAX's: rtol with atol 1e-6 (the policy
+    loss cancels to near 0), ``update_ratio`` to rtol 1e-4 (a quotient of
+    small steps) and ``ratio_atol``."""
+    for name in ("value_loss", "policy_loss", "dist_entropy", "grad_norm", "ratio",
+                 "param_norm", "nonfinite_grads"):
+        np.testing.assert_allclose(float(getattr(met, name)), float(getattr(jmet, name)),
+                                   rtol=rtol, atol=1e-6, err_msg=name)
+    np.testing.assert_allclose(float(met.update_ratio), float(jmet.update_ratio), rtol=1e-4,
+                               atol=ratio_atol)
