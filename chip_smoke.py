@@ -29,7 +29,9 @@ Phases, each printed on its own line and each fatal on failure:
    earlier design's recorded time and the cached decode step's; each check
    and timing prints the launch plan (path, rows a cluster, which kernel)
    and each timing the cluster barriers a position (ar_decode) or a launch
-   (decode_step);
+   (decode_step); both attention kernels at N = B * H = 70,000 rows (35,000
+   x 2 heads, L 8), past the 65,535 blocks a grid's y axis allows, f32 and
+   bf16;
 3. serving: the DCML MAT policy at full width (101 agents, obs 7, state 102,
    n_embd 64, 2 blocks, 2 heads, seeded random weights) served through
    ContinuousBatcher -> DecodeEngine -> serve_decode on the card, first with
@@ -88,10 +90,32 @@ Phases, each printed on its own line and each fatal on failure:
    CPU port; a ``dmomat`` run stopped by SIGTERM after its first episode
    and resumed, equal to the uninterrupted 2-episode run (held as phase 9
    (b)); the ``dmomat`` export served at bucket 8, equal to the in-memory
-   weights' engine bit for bit.
+   weights' engine bit for bit;
+11. SMAC-lite (MAT's discrete family, availability masks from a live env):
+   (a) the 8m recipe (scripts/train_smac.sh: 8 agents, obs 80, state 168,
+   14 actions, n_embd 64, 2 blocks, 2 heads; E = 32, T = 100, 15 epochs x
+   1 minibatch, lr 5e-4, clip 0.05), one cached and one scan iteration, each
+   with its launches counted exactly and one more update matched against the
+   CPU port, then one bf16 scan iteration (ar_decode's bf16 leg on live
+   masks); (b) the three kernels against their plain versions at SMAC's
+   shapes (attention at 3,200 / 3,600 rows x 2 heads and L 8 / 27, the
+   rollout's 32 / 36 rows, ar_decode at B 32, A 8, adim 14 and B 36, A 27,
+   adim 36 on the env's masks), timed beside plain, SDPA and their bounds;
+   (c) SMACRunner.evaluate until 32 battles end; (d) 2 episodes against 1 +
+   SIGTERM + resume 1, bit for bit where phase 9 (a) found the card
+   deterministic; (e) the export served by DecodeEngine.from_export at
+   bucket 8 on live masks, cached and scan, every action available, equal
+   to the in-memory weights' engine; (f) SMACMultiRunner (the universal
+   layout: 27 agents, 36 actions, obs 869, state 1754; E = 36, T = 100, 10
+   epochs) one iteration on 3m and one on 8m with random agent order, then
+   the held-out 2m evaluated; (g) the learning check of
+   tests/test_smac.py::test_mat_improves_win_rate_on_2m (2m, E 32, T 40,
+   n_embd 32, 1 block, 5 epochs, lr 5e-4, entropy 0.01, 30 iterations): the
+   evaluated win rate after at least before and above 0.3.
 
 The bf16 legs' readings are a JSON line ``{"bf16_legs": {...}}``, phase 9's
-``{"checkpoint_phase": {...}}``, phase 10's ``{"mat_family_phase": {...}}``;
+``{"checkpoint_phase": {...}}``, phase 10's ``{"mat_family_phase": {...}}``,
+phase 11's ``{"smac_phase": {...}}``;
 the last
 two lines of standard output are a JSON object describing each kernel and
 the result line ``{"ok": true, "device": {...}}``.  Without a
@@ -190,6 +214,12 @@ BF16_UPDATE_RTOL, BF16_UPDATE_ATOL, BF16_VALUE_LOSS_RTOL = 5e-3, 5e-4, 1e-2
 # training phase: the recipe (RunConfig / PPOConfig defaults); one cached
 # f32 iteration (two before the bf16 phases joined, to keep the run's time)
 TRAIN_ITERS = 1
+# the attention kernels past a grid's y limit of 65,535 blocks: 35,000 rows
+# x 2 heads (phase 2).  At SMAC's short rows (L 8, 27: phases 2 and 11) an
+# output is an average of few values and reaches 2-4, where a bf16 ulp is
+# 2^-7 of it: the forward is held to TOL x max(1, the largest |plain|), as
+# the backward is to the largest gradient
+LARGE_N_ROWS = 35_000
 # card vs CPU after one full update: Adam moves an entry by at most lr per
 # step, and a gradient near 0 can move it by a different amount on each
 # side, so the bound is a hundredth of the most an entry can move; metrics
@@ -197,6 +227,12 @@ TRAIN_ITERS = 1
 # advantages that cancels to near 0)
 UPDATE_TOL_FRACTION = 0.01
 METRIC_RTOL = 1e-4
+# SMAC (phase 11): the 8m recipe (scripts/train_smac.sh: E 32, T 100, 15
+# epochs x 1 minibatch, lr 5e-4, clip 0.05) and the multi-map one
+# (scripts/train_smac_multi.sh: E 36, 10 epochs); the 2m learning check of
+# tests/test_smac.py (30 iterations)
+SMAC_E, MULTI_E, SMAC_T = 32, 36, 100
+LEARN_ITERS = 30
 # checkpoint, resume, export, evaluate (phase 9): the recipe's iterations,
 # 3 episodes a run; where the card is not bit-deterministic, the resumed run
 # may differ from the uninterrupted one by no more than two uninterrupted
@@ -476,6 +512,46 @@ def phase2_backward(torch):
                 f"{old_bound_ms * 1e3:.2f} us {old_bound_by}); L2-warm")
     torch.cuda.synchronize()
     return errs, shapes
+
+
+def phase2_large_n(torch):
+    """Both attention kernels past the 65,535 blocks a grid's y axis allows
+    (the forward once put N there): N = B * H = 70,000 rows (35,000 x 2
+    heads, L 8, Dh 32), f32 and bf16, all keys and causal, against plain
+    with phase 2's tolerances.  Returns ``{(label, dtype): (fwd err, bwd
+    err)}``."""
+    from mat_dcml_tpu_torch.ops import cuda_attention as ca
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    B, H, L, Dh = LARGE_N_ROWS, 2, 8, 32
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for causal in (False, True):
+            label = f"N {B * H} ({B} x {H} heads, L {L}), {'causal' if causal else 'all keys'}"
+            q, k, v, do = (torch.randn(B, H, L, Dh, generator=g, device=dev).to(dtype)
+                           for _ in range(4))
+            out = ca.fused_masked_attention(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            ref = ca.attention_plain(q, k, v, causal=causal).float()
+            err = (out.float() - ref).abs().max().item()
+            fscale = max(1.0, ref.abs().max().item())
+            grads = ca.attention_bwd(q, k, v, do, causal=causal)
+            torch.cuda.synchronize()
+            refs = ca.attention_bwd_plain(q, k, v, do, causal=causal)
+            scale = max(1.0, max(r.float().abs().max().item() for r in refs))
+            berr = max((a.float() - b.float()).abs().max().item() for a, b in zip(grads, refs))
+            errs[(label, name)] = (err, berr)
+            say(f"[phase 2] grid: {label} {name}: forward max|kernel - plain| {err:.3g} (tol "
+                f"{TOL[name]} x {fscale:.3g}), backward {berr:.3g} (tol {BWD_TOL[name]} x "
+                f"{scale:.3g})")
+            if not (err <= TOL[name] * fscale and berr <= BWD_TOL[name] * scale):
+                raise AssertionError(f"attention at {label} {name}: forward {err}, backward "
+                                     f"{berr}")
+            del q, k, v, do, out, ref, grads, refs
+    torch.cuda.synchronize()
+    return errs
 
 
 def _agree(act, logp, ref_act, ref_logp, scores, nd, tol, what, near_tie=NEAR_TIE):
@@ -2341,6 +2417,470 @@ def phase10_mat_family(torch, card, deterministic, spread):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def _smac_masks(torch, env, E, seed, steps=3, dead_share=0.2):
+    """``(state, obs, avail)`` of ``env`` (SMAC-lite, or its multi-map
+    translation) on the card: E fresh battles, ``steps`` steps of every
+    ally moving east (so attacks come into range), then a share of the
+    allies killed, observed again (a dead ally's row: the no-op alone)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    base = getattr(env, "env", env)
+    st, _ = env.reset(env.draw_reset(E, g))
+    east = torch.full((E, env.n_agents, 1), 4.0, device="cuda")
+    for _ in range(steps):
+        st, _ = env.step(st, east, env.draw_step(E, g))
+    kill = torch.rand(st.ally_hp.shape, generator=g, device="cuda") < dead_share
+    st = st._replace(ally_hp=torch.where(kill, 0.0, st.ally_hp))
+    obs, share, avail = base._observe(st)
+    if base is not env:
+        obs, share, avail = (env._translate_obs(obs), env._translate_state(share),
+                             env._translate_avail(avail))
+    return share, obs, avail
+
+
+def _smac_configs():
+    """MAT at SMAC's widths (n_embd 64, 2 blocks, 2 heads, discrete): 8m and
+    the multi-map layout."""
+    from mat_dcml_tpu_torch.envs.smac.smaclite import SMACLiteConfig, SMACLiteEnv
+    from mat_dcml_tpu_torch.envs.smac.translation import TranslatedSMACEnv
+    from mat_dcml_tpu_torch.models.mat import MATConfig
+
+    out = {}
+    for name, env in (("8m", SMACLiteEnv(SMACLiteConfig("8m"), device="cpu")),
+                      ("multi", TranslatedSMACEnv(SMACLiteConfig("8m"), device="cpu"))):
+        out[name] = MATConfig(n_agent=env.n_agents, obs_dim=env.obs_dim,
+                              state_dim=env.share_obs_dim, action_dim=env.action_dim,
+                              n_block=2, n_embd=64, n_head=2, action_type="discrete")
+    return out
+
+
+def phase11_kernels(torch):
+    """(b) The three kernels of the SMAC paths against their plain versions
+    at SMAC's shapes, f32 and bf16, each f32 one timed beside its plain
+    version, SDPA (attention) and its bound: attention forward and backward
+    at the update's (3,200 and 3,600 rows x 2 heads, L 8 and 27) and the
+    rollout's (32 and 36 rows; the cached decode's Lq = 1), ar_decode at
+    the rollout's batch (B 32, A 8, adim 14; B 36, A 27, adim 36) with the
+    env's own masks, every action it draws available."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from mat_dcml_tpu_torch.envs.smac.smaclite import SMACLiteConfig, SMACLiteEnv
+    from mat_dcml_tpu_torch.envs.smac.translation import TranslatedSMACEnv
+    from mat_dcml_tpu_torch.ops import ar_decode as ard
+    from mat_dcml_tpu_torch.ops import cuda_attention as ca
+    from mat_dcml_tpu_torch.ops.distributions import gumbel_noise
+
+    tag = "[phase 11 (b)]"
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    H, Dh = 2, 32
+    fwd_shapes, bwd_shapes, ar_shapes, errs = {}, {}, {}, {}
+    cases = (("8m_update", SMAC_E * SMAC_T, 8, 8, False, None),
+             ("8m_update_causal", SMAC_E * SMAC_T, 8, 8, True, None),
+             ("8m_rollout", SMAC_E, 8, 8, False, None),
+             ("8m_decode_i3", SMAC_E, 1, 8, False, torch.arange(8, device=dev) <= 3),
+             ("multi_update", MULTI_E * SMAC_T, 27, 27, False, None),
+             ("multi_update_causal", MULTI_E * SMAC_T, 27, 27, True, None),
+             ("multi_rollout", MULTI_E, 27, 27, False, None),
+             ("multi_decode_i13", MULTI_E, 1, 27, False, torch.arange(27, device=dev) <= 13))
+    for label, B, lq, lk, causal, mask in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            q, k, v = (torch.randn(B, H, n, Dh, generator=g, device=dev).to(dtype)
+                       for n in (lq, lk, lk))
+            out = ca.fused_masked_attention(q, k, v, causal=causal, kv_mask=mask)
+            torch.cuda.synchronize()
+            ref = ca.attention_plain(q, k, v, causal=causal, kv_mask=mask).float()
+            err = (out.float() - ref).abs().max().item()
+            fscale = max(1.0, ref.abs().max().item())
+            errs[("fwd", label, name)] = err
+            if not err <= TOL[name] * fscale:
+                raise AssertionError(f"attention_fwd {label} {name}: error {err} > {TOL[name]} "
+                                     f"x {fscale}")
+            if lq > 1:
+                do = torch.randn_like(q)
+                grads = ca.attention_bwd(q, k, v, do, causal=causal)
+                torch.cuda.synchronize()
+                refs = ca.attention_bwd_plain(q, k, v, do, causal=causal)
+                scale = max(1.0, max(r.float().abs().max().item() for r in refs))
+                berr = max((a.float() - b.float()).abs().max().item()
+                           for a, b in zip(grads, refs))
+                errs[("bwd", label, name)] = berr
+                if not berr <= BWD_TOL[name] * scale:
+                    raise AssertionError(f"attention_bwd {label} {name}: error {berr} > "
+                                         f"{BWD_TOL[name]} x {scale}")
+            say(f"{tag} attention {label} {tuple(q.shape)} k {tuple(k.shape)} {name}: forward "
+                f"max|kernel - plain| {err:.3g} (tol {TOL[name]} x {fscale:.3g})"
+                + (f", backward {errs[('bwd', label, name)]:.3g} (tol {BWD_TOL[name]} x the "
+                   "largest gradient)" if lq > 1 else ""))
+            if dtype != torch.float32:
+                continue
+            sdpa_mask = None if mask is None else mask[None, None, None, :]
+            ms, eager_ms = _time_ms(
+                torch, lambda: ca.fused_masked_attention(q, k, v, causal=causal, kv_mask=mask))
+            plain_ms, _ = _time_ms(
+                torch, lambda: ca.attention_plain(q, k, v, causal=causal, kv_mask=mask))
+            lib_ms, _ = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=sdpa_mask, is_causal=causal))
+            bound_ms, bound_by = _bound(q, k, mask, "float32", causal)
+            fwd_shapes[label] = {"shape": f"q {tuple(q.shape)} k {tuple(k.shape)} f32, causal "
+                                          f"{causal}", "ms": ms, "eager_ms": eager_ms,
+                                 "plain_ms": plain_ms, "library_ms": lib_ms,
+                                 "bound_ms": bound_ms, "bound_by": bound_by}
+            say(f"{tag} time attention {label} f32, device (eager) per call: kernel "
+                f"{ms * 1e3:.2f} ({eager_ms * 1e3:.2f}) us, plain {plain_ms * 1e3:.2f} us, sdpa "
+                f"{lib_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.3f} us ({bound_by}); L2-warm")
+            if lq == 1:
+                continue
+            ms, eager_ms = _time_ms(torch, lambda: ca.attention_bwd(q, k, v, do, causal=causal))
+            plain_ms, _ = _time_ms(torch,
+                                   lambda: ca.attention_bwd_plain(q, k, v, do, causal=causal))
+            leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+
+            def sdpa():
+                return F.scaled_dot_product_attention(*leaves, is_causal=causal)
+
+            lib_fb_ms, _ = _time_ms(torch, lambda: torch.autograd.grad(sdpa(), leaves, do))
+            lib_f_ms, _ = _time_ms(torch, sdpa)
+            bound_ms, bound_by = _bwd_bound(q, causal, "float32")
+            bwd_shapes[label] = {"shape": f"q/k/v/dO {tuple(q.shape)} f32, causal {causal}",
+                                 "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+                                 "library_ms": lib_fb_ms - lib_f_ms, "bound_ms": bound_ms,
+                                 "bound_by": bound_by}
+            say(f"{tag} time attention_bwd {label} f32, device (eager) per call: kernel "
+                f"{ms * 1e3:.2f} ({eager_ms * 1e3:.2f}) us, plain fwd+bwd {plain_ms * 1e3:.2f} "
+                f"us, sdpa bwd {(lib_fb_ms - lib_f_ms) * 1e3:.2f} us, bound "
+                f"{bound_ms * 1e3:.3f} us ({bound_by}); L2-warm")
+
+    cfgs = _smac_configs()
+    envs = {"8m": (SMACLiteEnv(SMACLiteConfig("8m")), SMAC_E),
+            "multi": (TranslatedSMACEnv(SMACLiteConfig("8m")), MULTI_E)}
+    with torch.no_grad():
+        for label, (env, B) in envs.items():
+            for dtype in ("float32", "bfloat16"):
+                cfg = dataclasses.replace(cfgs[label], dtype=dtype)
+                weights = ard.pack_ar_decode_weights(_scaled_model(torch, cfg, SEED + 22))
+                _, _, avail = _smac_masks(torch, env, B, seed=SEED + 23)
+                A, adim = cfg.n_agent, cfg.action_dim
+                rep = torch.randn(B, A, cfg.n_embd, generator=g, device=dev).to(cfg.trunk_dtype)
+                gumbel = gumbel_noise((B, A, adim), g, dev)
+                normal = torch.zeros(B, 1, adim, device=dev)
+                kw = dict(n_head=cfg.n_head, adim=adim, nd=A)
+                act, logp = ard.fused_ar_decode(weights, rep, gumbel, normal, avail, **kw)
+                torch.cuda.synchronize()
+                picked = avail.gather(-1, act.long()[..., None])
+                if not (picked == 1).all():
+                    raise AssertionError(f"ar_decode {label} {dtype}: an unavailable action")
+                ref = ard.ar_decode_plain(weights, rep, gumbel, normal, avail,
+                                          return_scores=True, **kw)
+                bf16 = dtype == "bfloat16"
+                err, flips = _agree(*(t.cpu().numpy() for t in (act, logp, *ref)), A,
+                                    BF16_AR_TOL if bf16 else AR_LOGP_TOL,
+                                    f"ar_decode {label} {dtype}",
+                                    near_tie=BF16_NEAR_TIE if bf16 else NEAR_TIE)
+                errs[("ar_decode", label, dtype)] = err
+                plan = ard.kernel_plan(B, A, n_embd=cfg.n_embd, n_head=cfg.n_head,
+                                       n_block=cfg.n_block, adim=adim, dtype=cfg.trunk_dtype)
+                dead = int((avail[..., 1] == 0).sum())
+                say(f"{tag} ar_decode {label} B {B} A {A} adim {adim} {dtype} on the env's masks "
+                    f"({dead} dead agents, {int(avail.sum())} actions available): max|logp "
+                    f"kernel - plain| {err:.3g} (tol {BF16_AR_TOL if bf16 else AR_LOGP_TOL}), "
+                    f"rows diverging at a near-tie {flips}, every action available "
+                    f"({_plan_words(plan)}, {plan.smem_bytes} B shared memory a CTA, "
+                    f"{plan.barriers} cluster barriers a position)")
+                if bf16:
+                    continue
+                ms, eager_ms = _time_ms(torch, lambda: ard.fused_ar_decode(
+                    weights, rep, gumbel, normal, avail, **kw), iters=20)
+                plain_ms, _ = _time_ms(torch, lambda: ard.ar_decode_plain(
+                    weights, rep, gumbel, normal, avail, **kw), iters=2)
+                bound_ms, bound_by = _ar_bound(cfg, weights, B, True)
+                ar_shapes[label] = {"shape": f"obs_rep ({B}, {A}, {cfg.n_embd}) f32, adim "
+                                             f"{adim}, noise, the env's masks",
+                                    "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+                                    "bound_ms": bound_ms, "bound_by": bound_by,
+                                    "plan": _plan_words(plan)}
+                say(f"{tag} time ar_decode {label} B {B}, device (eager) per call: kernel "
+                    f"{ms:.3f} ({eager_ms:.3f}) ms, plain {plain_ms:.2f} ms, bound "
+                    f"{bound_ms * 1e3:.2f} us ({bound_by}); L2-warm")
+    torch.cuda.synchronize()
+    return fwd_shapes, bwd_shapes, ar_shapes, errs
+
+
+def _smac_expected(cfg, run, ppo, mode, iters=1):
+    """``(attention_fwd, attention_bwd, ar_decode, decode_step)`` launches of
+    ``iters`` SMAC iterations and ``(fwd, bwd)`` of one update: a collect
+    step is the encoder's n_block forward launches and the decode's (cached:
+    2 n_block a position; scan: one ar_decode); the update as DCML's."""
+    nb, A, T = cfg.n_block, cfg.n_agent, run.episode_length
+    _, _, upd_fwd, upd_bwd = _expected_launches(cfg, run, ppo, 1)
+    collect = (T * (nb + A * 2 * nb), 0) if mode == "cached" else (T * nb, T)
+    return ((iters * (collect[0] + upd_fwd), iters * upd_bwd, iters * collect[1], 0),
+            (upd_fwd, upd_bwd))
+
+
+def phase11_smac(torch, card, deterministic, spread):
+    """MAT on SMAC-lite on the card (the module docstring's phase 11).
+    Returns ``{path: (attention_fwd, attention_bwd, ar_decode,
+    decode_step) launches}``, the phase's readings and the kernels'
+    readings at SMAC's shapes."""
+    import math
+    import os
+    import shutil
+    import signal
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from mat_dcml_tpu_torch import export_policy as export_cli
+    from mat_dcml_tpu_torch.config import RunConfig
+    from mat_dcml_tpu_torch.envs.smac.smaclite import SMACLiteConfig, SMACLiteEnv
+    from mat_dcml_tpu_torch.ops import ar_decode as ard
+    from mat_dcml_tpu_torch.ops import cuda_attention as ca
+    from mat_dcml_tpu_torch.ops import decode_step as dst
+    from mat_dcml_tpu_torch.serving.engine import DecodeEngine, EngineConfig
+    from mat_dcml_tpu_torch.training.ppo import PPOConfig
+    from mat_dcml_tpu_torch.training.resilience import EXIT_PREEMPTED
+    from mat_dcml_tpu_torch.training.smac_runner import SMACMultiRunner, SMACRunner
+
+    tag = "[phase 11]"
+    t_phase = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_smac_"))
+    paths, readings = {}, {"card": card}
+    ppo_8m = PPOConfig(ppo_epoch=15, num_mini_batch=1, lr=5e-4, clip_param=0.05)
+
+    def launches():
+        return ca.launches, ca.bwd_launches, ard.launches, dst.launches
+
+    def zero():
+        torch.cuda.synchronize()
+        ca.launches = ca.bwd_launches = ard.launches = dst.launches = 0
+
+    def runner(name, mode, ppo=ppo_8m, map_name="8m", episodes=1, log=None, E=SMAC_E,
+               T=SMAC_T, **kw):
+        kw.setdefault("save_interval", 0)
+        run = RunConfig(seed=SEED, env_name="StarCraft2", scenario=map_name, decode_mode=mode,
+                        log_interval=1, run_dir=str(root / name), n_rollout_threads=E,
+                        episode_length=T, num_env_steps=episodes * E * T, **kw)
+        return SMACRunner(run, ppo, SMACLiteConfig(map_name),
+                          log_fn=log or (lambda m: say(f"{tag} {name}: {m}")))
+
+    def final(r, state):
+        torch.cuda.synchronize()
+        return {**r.trainer.state_dict(state), "generator": r.generator.get_state()}
+
+    try:
+        # (a) the 8m recipe: cached, scan, bf16 scan
+        for name, mode, dtype in (("8m_cached", "cached", "float32"),
+                                  ("8m_scan", "scan", "float32"),
+                                  ("8m_bf16_scan", "scan", "bfloat16")):
+            r = runner(name, mode, model_dtype=dtype)
+            cfg = r.policy.cfg
+            _expect_device(r.device, name)
+            train_state, rollout_state = r.setup()
+            zero()
+            train_state, rollout_state = r.train_loop(1, train_state, rollout_state)
+            torch.cuda.synchronize()
+            paths[f"smac_{name}"] = launches()
+            want, upd = _smac_expected(cfg, r.run_cfg, ppo_8m, mode)
+            rec = r.records[0]
+            it = rec["step_time_collect"] + rec["step_time_train"]
+            say(f"{tag} {name} (8m: {cfg.n_agent} agents, obs {cfg.obs_dim}, state "
+                f"{cfg.state_dim}, {cfg.action_dim} actions; E {SMAC_E}, T {SMAC_T}, "
+                f"{ppo_8m.ppo_epoch} x {ppo_8m.num_mini_batch} minibatch, {cfg.dtype}) iteration "
+                f"on {card}: collect {rec['step_time_collect']:.3f}s, update "
+                f"{rec['step_time_train']:.3f}s ({rec['step_time_train'] / it:.1%} of "
+                f"{it:.3f}s), fps {rec['fps']:.1f}; launches fwd/bwd/ar_decode/decode_step "
+                f"{paths[f'smac_{name}']} (expected {want})")
+            _expect_launches(paths[f"smac_{name}"], want, name)
+            if not all(math.isfinite(v) for v in rec.values()):
+                raise AssertionError(f"{name}: metrics not finite: {rec}")
+            say(f"{tag} {name} record: " + ", ".join(
+                f"{k} {rec[k]:.6g}" for k in ("average_step_rewards", "win_rate", "dead_ratio",
+                                              "value_loss", "policy_loss", "dist_entropy",
+                                              "grad_norm") if k in rec))
+            readings[name] = {"collect_s": rec["step_time_collect"],
+                              "update_s": rec["step_time_train"], "fps": rec["fps"]}
+            if dtype == "float32":
+                card_launches = _match_cpu_update(torch, r, ppo_8m, train_state, rollout_state,
+                                                  tag=f"phase 11 {name}")
+                _expect_launches(card_launches, upd, f"{name}'s update")
+            if mode == "scan" and dtype == "float32":
+                # (c) evaluation: deterministic battles until 32 have ended
+                zero()
+                t0 = time.perf_counter()
+                info = r.evaluate(n_episodes=32)
+                torch.cuda.synchronize()
+                eval_s = time.perf_counter() - t0
+                paths["smac_eval_8m_scan"] = got = launches()
+                if not (got[2] > 0 and got[0] == cfg.n_block * got[2] and got[1] == 0
+                        and info["eval_episodes"] >= 32):
+                    raise AssertionError(f"8m evaluation: {info}, launches {got}")
+                say(f"{tag} (c) 8m evaluation (scan, E {SMAC_E}): {info} in {eval_s:.2f}s, "
+                    f"{got[2]} steps (one ar_decode launch and {cfg.n_block} attention "
+                    f"launches a step)")
+                readings["eval_8m"] = {**info, "seconds": eval_s, "steps": got[2]}
+        readings["a_c_seconds"] = time.perf_counter() - t_phase
+        say(f"{tag} [time] (a), (c) done at {readings['a_c_seconds']:.1f}s of the phase")
+
+        # (d) stop and resume: 2 episodes against 1, SIGTERM, resume 1
+        ref = runner("resume_ref", "scan", episodes=2, save_interval=1)
+        ref_state, ref_rollout = ref.train_loop()
+        ref_final = final(ref, ref_state)
+
+        def sigterm_after_0(m):
+            say(f"{tag} resume_stop: {m}")
+            if m.startswith("ep 0 "):
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        zero()
+        stopped = runner("resume_stop", "scan", episodes=2, save_interval=1, log=sigterm_after_0)
+        try:
+            stopped.train_loop()
+            raise AssertionError("smac: the run did not stop on SIGTERM")
+        except SystemExit as e:
+            if e.code != EXIT_PREEMPTED:
+                raise AssertionError(f"smac: exit code {e.code}, expected {EXIT_PREEMPTED}")
+        resumed = runner("resume_stop", "scan", episodes=2, save_interval=1, resume="auto")
+        res_state, res_rollout = resumed.setup()
+        if resumed.start_episode != 1:
+            raise AssertionError(f"smac: resumed at episode {resumed.start_episode}")
+        res_state, res_rollout = resumed.train_loop(train_state=res_state,
+                                                    rollout_state=res_rollout)
+        torch.cuda.synchronize()
+        paths["smac_resume_8m"] = launches()
+        want, _ = _smac_expected(ref.policy.cfg, ref.run_cfg, ppo_8m, "scan", iters=2)
+        _expect_launches(paths["smac_resume_8m"], want, "smac resume")
+        equal, diff = _state_diff(torch, final(resumed, res_state), ref_final, "smac resume")
+        env_equal = all(torch.equal(a, b) for a, b in zip(res_rollout.env_states,
+                                                          ref_rollout.env_states))
+        if deterministic and not (equal and env_equal):
+            raise AssertionError(f"smac: the resumed run differs from the uninterrupted one by "
+                                 f"{diff:.3g} (battles equal: {env_equal}) on a deterministic "
+                                 "card")
+        if not deterministic and not diff <= spread:
+            raise AssertionError(f"smac: resumed run differs by {diff:.3g} > phase 9 (a)'s "
+                                 f"spread {spread:.3g}")
+        say(f"{tag} (d) 8m: 1 episode, SIGTERM, emergency checkpoint, exit {EXIT_PREEMPTED}, "
+            f"resume='auto' at episode {resumed.start_episode}: equal to the uninterrupted "
+            f"2-episode run bit for bit: {equal} (max |diff| {diff:.3g}), battles equal: "
+            f"{env_equal}; launches {paths['smac_resume_8m']} (expected {want})")
+        readings["resume_equal"] = bool(equal and env_equal)
+        say(f"{tag} [time] (d) done at {time.perf_counter() - t_phase:.1f}s of the phase")
+
+        # (e) the export served at bucket 8 with live masks, cached and scan
+        out = root / "exports" / "8m"
+        if export_cli.main(["--map_name", "8m", "--model_dir", str(ref.ckpt.directory),
+                            "--out", str(out)]) != 0:
+            raise AssertionError("smac: export failed")
+        state_, obs_, avail_ = (x.cpu().numpy() for x in _smac_masks(
+            torch, SMACLiteEnv(SMACLiteConfig("8m")), 8, seed=SEED + 24))
+        quiet = lambda *_: None   # noqa: E731
+        served = {}
+        for mode in ("cached", "scan"):
+            ecfg = EngineConfig(buckets=(1, 8), decode_mode=mode)
+            zero()
+            eng = DecodeEngine.from_export(out, ecfg, log_fn=quiet)
+            live = DecodeEngine(ref.policy.model.state_dict(), ref.policy.cfg, ecfg,
+                                log_fn=quiet)
+            eng.warmup()
+            live.warmup()
+            a, lp = eng.decode(state_, obs_, avail_)
+            b, lq = live.decode(state_, obs_, avail_)
+            torch.cuda.synchronize()
+            paths[f"smac_serving_export_{mode}"] = launches()
+            cfg = eng.cfg
+            per = (cfg.n_block + cfg.n_agent * 2 * cfg.n_block, 0) if mode == "cached" else (
+                cfg.n_block, 1)
+            want = (6 * per[0], 0, 6 * per[1], 0)   # two engines, 3 decodes each
+            _expect_launches(paths[f"smac_serving_export_{mode}"], want, f"smac serving {mode}")
+            available = np.take_along_axis(avail_, a.astype(int), -1)
+            if not (available == 1).all():
+                raise AssertionError(f"smac serving {mode}: an unavailable action was served")
+            if not (np.array_equal(a, b) and np.array_equal(lp, lq)):
+                raise AssertionError(f"smac serving {mode}: the export's engine differs from "
+                                     "the in-memory one")
+            served[mode] = a
+            say(f"{tag} (e) 8m export served by DecodeEngine.from_export, {mode}, bucket 8 on "
+                f"live masks ({int((avail_[..., 1] == 0).sum())} dead agents): every action "
+                f"available, equal bit for bit to the in-memory weights' engine; launches "
+                f"{paths[f'smac_serving_export_{mode}']} (expected {want})")
+        readings["served_scan_equals_cached"] = bool(np.array_equal(served["cached"],
+                                                                    served["scan"]))
+
+        # (f) multi-map: one iteration on each of 3m and 8m, random order on,
+        # then a held-out map
+        ppo_multi = PPOConfig(ppo_epoch=10, num_mini_batch=1, lr=5e-4, clip_param=0.05)
+        run = RunConfig(seed=SEED, env_name="StarCraft2Multi", scenario="multi",
+                        decode_mode="scan", log_interval=1, save_interval=0,
+                        run_dir=str(root / "multi"), n_rollout_threads=MULTI_E,
+                        episode_length=SMAC_T, num_env_steps=2 * MULTI_E * SMAC_T)
+        multi = SMACMultiRunner(run, ppo_multi, ("3m", "8m"), random_order=True,
+                                log_fn=lambda m: say(f"{tag} multi: {m}"))
+        cfg = multi.policy.cfg
+        train_state, rollout_states = multi.setup()
+        zero()
+        multi.train_loop(2, train_state, rollout_states)
+        torch.cuda.synchronize()
+        paths["smac_multi_map"] = launches()
+        want, _ = _smac_expected(cfg, run, ppo_multi, "scan", iters=2)
+        _expect_launches(paths["smac_multi_map"], want, "multi-map")
+        for rec in multi.records:
+            if not all(math.isfinite(v) for v in rec.values() if not isinstance(v, str)):
+                raise AssertionError(f"multi-map: metrics not finite: {rec}")
+            say(f"{tag} (f) multi-map {rec['map']} iteration (27 agents, obs {cfg.obs_dim}, "
+                f"state {cfg.state_dim}, 36 actions; E {MULTI_E}, T {SMAC_T}, "
+                f"{ppo_multi.ppo_epoch} x 1): collect {rec['step_time_collect']:.3f}s, update "
+                f"{rec['step_time_train']:.3f}s; " + ", ".join(
+                    f"{k} {v:.6g}" for k, v in rec.items() if k.startswith(("win_rate",
+                                                                            "value_loss"))))
+        readings["multi_map"] = [{k: rec[k] for k in ("map", "step_time_collect",
+                                                      "step_time_train")}
+                                 for rec in multi.records]
+        zero()
+        t0 = time.perf_counter()
+        held_out = multi.evaluate(maps=("2m",), n_episodes=MULTI_E)
+        torch.cuda.synchronize()
+        paths["smac_multi_eval_2m"] = got = launches()
+        if not (got[2] > 0 and got[0] == cfg.n_block * got[2] and "eval_win_rate_2m" in held_out):
+            raise AssertionError(f"held-out evaluation: {held_out}, launches {got}")
+        say(f"{tag} (f) held-out 2m evaluation: {held_out} in {time.perf_counter() - t0:.2f}s; "
+            f"launches {got}; multi-map launches {paths['smac_multi_map']} (expected {want})")
+        readings["multi_eval_2m"] = held_out
+        say(f"{tag} [time] (e), (f) done at {time.perf_counter() - t_phase:.1f}s of the phase")
+
+        # (g) the learning check of tests/test_smac.py::test_mat_improves_win_rate_on_2m
+        ppo_2m = PPOConfig(ppo_epoch=5, num_mini_batch=1, lr=5e-4, entropy_coef=0.01)
+        learner = runner("learn_2m", "scan", ppo=ppo_2m, map_name="2m", episodes=LEARN_ITERS,
+                         E=32, T=40, n_embd=32, n_block=1,
+                         log=lambda m: m.startswith("ep ") or say(f"{tag} learn_2m: {m}"))
+        train_state, rollout_state = learner.setup()
+        before = learner.evaluate(n_episodes=24, seed=1)
+        t0 = time.perf_counter()
+        zero()
+        learner.train_loop(LEARN_ITERS, train_state, rollout_state)
+        torch.cuda.synchronize()
+        learn_s = time.perf_counter() - t0
+        paths["smac_learn_2m"] = launches()
+        after = learner.evaluate(n_episodes=24, seed=1)
+        curve = [round(rec.get("win_rate", float("nan")), 4) for rec in learner.records]
+        say(f"{tag} (g) 2m learning check, {LEARN_ITERS} iterations in {learn_s:.2f}s: "
+            f"evaluated win rate {before['eval_win_rate']:.4f} before, "
+            f"{after['eval_win_rate']:.4f} after (dead ratio {before['eval_dead_ratio']:.4f} -> "
+            f"{after['eval_dead_ratio']:.4f}); training win rate by iteration {curve}")
+        if not (after["eval_win_rate"] >= before["eval_win_rate"]
+                and after["eval_win_rate"] > 0.3):
+            raise AssertionError(f"2m: no learning: before {before}, after {after}")
+        readings["learn_2m"] = {"before": before, "after": after, "seconds": learn_s,
+                                "train_win_rate": curve}
+        readings["seconds"] = time.perf_counter() - t_phase
+        return paths, readings
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def _teacher_scores(torch, cfg, params, state, obs, avail, act):
     """The teacher-forced logits on the CPU under the actions ``act (B, A,
     1)``, availability applied: the scores the near-tie check reads."""
@@ -2378,6 +2918,7 @@ def main() -> int:
     torch.cuda.synchronize()
     errs, shapes = phase2_kernels(torch)
     bwd_errs, bwd_shapes = phase2_backward(torch)
+    large_n = phase2_large_n(torch)
     ar_err, ar_shapes = phase2_ar_decode(torch)
     step_err, step_shapes = phase2_decode_step(torch)
     say(f"[time] f32 kernel checks done at {time.perf_counter() - t_start:.1f}s")
@@ -2416,6 +2957,11 @@ def main() -> int:
     mo_paths, mo_readings = phase10_mat_family(torch, card, ckpt_readings["deterministic"],
                                                ckpt_readings["spread"])
     say(f"[time] MAT family phase done at {time.perf_counter() - t_start:.1f}s")
+    smac_fwd, smac_bwd, smac_ar, smac_errs = phase11_kernels(torch)
+    smac_paths, smac_readings = phase11_smac(torch, card, ckpt_readings["deterministic"],
+                                             ckpt_readings["spread"])
+    smac_readings["kernel_errors"] = {" ".join(k): v for k, v in smac_errs.items()}
+    say(f"[time] SMAC phase done at {time.perf_counter() - t_start:.1f}s")
 
     dec = shapes["decode"]
     f32_err = max(e for (_, dt), e in errs.items() if dt == "float32")
@@ -2436,7 +2982,8 @@ def main() -> int:
         """``paths`` with the bf16 paths' and phases 9-10's launches of kernel ``k``."""
         return {**paths, **{name: n[k] for name, n in paths16.items()},
                 **{name: n[k] for name, n in ckpt_paths.items()},
-                **{name: n[k] for name, n in mo_paths.items()}}
+                **{name: n[k] for name, n in mo_paths.items()},
+                **{name: n[k] for name, n in smac_paths.items()}}
 
     fwd_paths = with16({"serving_cached": serve["cached"][0], "serving_scan": serve["scan"][0],
                         "training_cached": train_fwd, "training_scan": scan_fwd,
@@ -2467,6 +3014,8 @@ def main() -> int:
         "timed_at": "decode",
         "max_abs_err_bf16": bf16_err,
         "shapes": shapes,
+        "smac_shapes": smac_fwd,
+        "past_grid_y_limit": {" ".join(k): v[0] for k, v in large_n.items()},
     }
     enc = bwd_shapes["encoder"]
     bwd_kernel = {
@@ -2482,6 +3031,8 @@ def main() -> int:
         "timed_at": "encoder",
         "max_abs_err_bf16": max(e for (_, dt), e in bwd_errs.items() if dt == "bfloat16"),
         "shapes": bwd_shapes,
+        "smac_shapes": smac_bwd,
+        "past_grid_y_limit": {" ".join(k): v[1] for k, v in large_n.items()},
     }
     at8 = ar_shapes[8]
     ar_kernel = {
@@ -2498,6 +3049,7 @@ def main() -> int:
         "max_abs_err_of": "log-prob",
         "cached_decode_ms": at8["cached_decode_ms"],
         "shapes": {f"B={b}": v for b, v in ar_shapes.items()},
+        "smac_shapes": smac_ar,
     }
     step_paths = with16({"serving_cached": 0, "serving_scan": 0, "training_cached": 0,
                          "training_scan": 0,
@@ -2557,6 +3109,7 @@ def main() -> int:
     say(json.dumps({"bf16_legs": bf16_legs}))
     say(json.dumps({"checkpoint_phase": ckpt_readings}))
     say(json.dumps({"mat_family_phase": mo_readings}))
+    say(json.dumps({"smac_phase": smac_readings}))
     say(f"[done] {time.perf_counter() - t_start:.1f}s wall")
     say(card)   # as nvidia-smi gives it: name, power limit
     say(json.dumps({"kernels": [fwd_kernel, bwd_kernel, ar_kernel, step_kernel, probe_kernel]}))

@@ -87,8 +87,8 @@ attn_fwd_mma(const FwdParams p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ unsigned mw_s[kMaxL / kWarp];   // valid keys, as bits
 
-  const int n = blockIdx.y;
-  const int q0 = blockIdx.x * kRowsPerBlock;
+  const int n = blockIdx.x;   // N on x, whose limit is 2^31 - 1 (y's is 65,535)
+  const int q0 = blockIdx.y * kRowsPerBlock;
   const int rows = min(kRowsPerBlock, p.Lq - q0);
   const int q_rows = round_up(p.Lq < kRowsPerBlock ? p.Lq : kRowsPerBlock, 16);
   const int kv_end = p.causal ? min(p.Lk, q0 + rows) : p.Lk;   // keys any row here sees
@@ -423,7 +423,7 @@ cudaError_t launch_mma(const FwdParams& p, int N, cudaStream_t stream) {
   const size_t smem = mma_smem_bytes<T>(p.Lq, p.Lk, p.Dh);
   const cudaError_t e = opt_in_smem(attn_fwd_mma<T, DT>, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((unsigned)((p.Lq + kRowsPerBlock - 1) / kRowsPerBlock), (unsigned)N);
+  const dim3 grid((unsigned)N, (unsigned)((p.Lq + kRowsPerBlock - 1) / kRowsPerBlock));
   const int warps = (min(p.Lq, kRowsPerBlock) + 15) / 16;
   attn_fwd_mma<T, DT><<<grid, warps * kWarp, smem, stream>>>(p);
   return cudaGetLastError();

@@ -30,7 +30,8 @@ actor for all agents; ``momat``, MO-MAT's two-objective critic on the
 preference weights appended to obs and share_obs), or the ``random``
 baseline, and evaluates; ``training/mujoco_runner.py::MujocoRunner`` trains
 ``mat`` on multi-agent MuJoCo lite. MO runs add
-``average_step_objective_<i>`` to each record (``base_runner.py:900-914``).
+``average_step_objective_<i>`` to each record (``base_runner.py:900-914``);
+``training/smac_runner.py`` trains ``mat`` and ``mat_dec`` on SMAC-lite.
 Not ported yet: telemetry, fused dispatch, the dispatch watchdog (ROADMAP.md
 queue 1, items 12-13).
 
@@ -115,11 +116,12 @@ def build_mat_policy(run: RunConfig, env: DCMLEnv, device=None,
 
 
 def restore_mat_policy(run: RunConfig, env: DCMLEnv, model_dir, step: Optional[int] = None,
-                       device=None):
-    """``(policy, step)``: the DCML MAT built from ``run``'s model flags with
-    the weights of checkpoint ``step`` (default the newest) under
-    ``model_dir``; a shape mismatch fails in ``load_state_dict``."""
-    policy = build_mat_policy(run, env, device=device)
+                       device=None, build=build_mat_policy):
+    """``(policy, step)``: the MAT built by ``build(run, env, device=...)``
+    (default the DCML one) from ``run``'s model flags, with the weights of
+    checkpoint ``step`` (default the newest) under ``model_dir``; a shape
+    mismatch fails in ``load_state_dict``."""
+    policy = build(run, env, device=device)
     mgr = CheckpointManager(model_dir, device=device)
     step = mgr.latest_step() if step is None else step
     if step is None:
@@ -169,6 +171,10 @@ class EpisodicRunner:
     def evaluate(self, n_steps: int = 100, seed: int = 0, stride: Optional[int] = None) -> dict:
         raise NotImplementedError(f"{type(self).__name__} has no evaluation yet "
                                   "(ROADMAP.md queue 1, item 10)")
+
+    def _extra_metrics(self, record: dict) -> None:
+        """A subclass's renaming of a record's keys, in place, before it is
+        written (``base_runner.py:925``)."""
 
     # ---------------------------------------------------------------- resume
 
@@ -295,6 +301,7 @@ class EpisodicRunner:
                         record["aver_episode_delays"] = agg["done_delay_sum"] / agg["n_done"]
                         record["aver_episode_payments"] = agg["done_payment_sum"] / agg["n_done"]
                         agg = dict.fromkeys(agg, 0.0)
+                    self._extra_metrics(record)
                     self._write(record)
                     self.records.append(record)
                     self.log(f"ep {episode} steps {total_steps} fps {record['fps']:.0f} "

@@ -1,6 +1,7 @@
 """flax parameter tree <-> the port's ``state_dict``, for the semi-discrete
-DCML shape: every leaf lands on a parameter of the port's model, and the
-round trip gives back the JAX tree bit for bit."""
+DCML shape, the continuous families and the discrete family at SMAC's
+widths: every leaf lands on a parameter of the port's model, and the round
+trip gives back the JAX tree bit for bit."""
 
 import jax
 import jax.numpy as jnp
@@ -88,3 +89,29 @@ def test_continuous_families_carry_their_own_leaves(action_type):
     np.testing.assert_array_equal(back["log_std"], dec["log_std"])
     np.testing.assert_array_equal(back["action_encoder_bias"]["kernel"],
                                   dec["action_encoder_bias"]["kernel"])
+
+
+@pytest.mark.parametrize("widths", [
+    dict(n_agent=8, obs_dim=80, state_dim=168, action_dim=14),          # SMAC 8m
+    dict(n_agent=27, obs_dim=869, state_dim=1754, action_dim=36),       # the multi-map layout
+    dict(n_agent=8, obs_dim=80, state_dim=168, action_dim=14, dec_actor=True,
+         share_actor=True),                                             # MAT-Dec on 8m
+], ids=["smac_8m", "smac_multi_map", "smac_8m_mat_dec"])
+def test_discrete_family_round_trips_at_smac_widths(widths):
+    """The ``discrete`` family at SMAC's widths (n_embd 64): every flax leaf
+    lands on a parameter and the round trip is bit for bit."""
+    shape = dict(SHAPE, action_type="discrete", semi_index=-1, **widths)
+    cfg = JaxMATConfig(**shape)
+    A = cfg.n_agent
+    tree = jax.tree.map(np.asarray, jax.device_get(JaxMAT(cfg).init(
+        jax.random.key(5), jnp.zeros((1, A, cfg.state_dim)), jnp.zeros((1, A, cfg.obs_dim)),
+        jnp.zeros((1, A, cfg.action_input_dim)))))
+    sd = params_from_jax(tree)
+    model = MultiAgentTransformer(MATConfig(**shape), device="cpu")
+    assert set(sd) == set(model.state_dict())
+    model.load_state_dict(sd, strict=True)
+    back = dict(jax.tree_util.tree_leaves_with_path(params_to_jax(model.state_dict())))
+    flat = jax.tree_util.tree_leaves_with_path(tree)
+    assert len(flat) == len(back)
+    for path, leaf in flat:
+        np.testing.assert_array_equal(back[path], leaf)

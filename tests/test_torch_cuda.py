@@ -8,8 +8,9 @@ without the JAX package's conftest:
 
 Forward tolerance: f32 atol 1e-5 (summation order only), bf16 atol 8e-3 (both
 sides round the probabilities and the output to bf16: about an ulp of the
-output).  Backward (against autograd through the plain version): f32 atol
-1e-5 relative to the largest reference gradient (summation order only); bf16
+output); at SMAC's short rows (L 8, 27), whose outputs average few values
+and reach 2-4, both times max(1, the largest plain output).  Backward
+(against autograd through the plain version): f32 atol 1e-5 relative to the largest reference gradient (summation order only); bf16
 2**-7 relative (dq, dk, dv are rounded to bf16 on both sides, dP and P where
 plain rounds them, and a sum of 101 terms in a different order can move a
 bf16 result by an ulp, at most 2**-7 of its size).
@@ -47,7 +48,12 @@ import pytest
 import torch
 
 from mat_dcml_tpu_torch.models.decode import serve_decode
-from mat_dcml_tpu_torch.models.mat import SEMI_DISCRETE, MATConfig, MultiAgentTransformer
+from mat_dcml_tpu_torch.models.mat import (
+    DISCRETE,
+    SEMI_DISCRETE,
+    MATConfig,
+    MultiAgentTransformer,
+)
 from mat_dcml_tpu_torch.ops import ar_decode as ard
 from mat_dcml_tpu_torch.ops import cuda_attention
 from mat_dcml_tpu_torch.ops import decode_step as dst
@@ -231,6 +237,33 @@ def _bwd_agrees(q, k, v, do, causal, m):
         assert err <= BWD_TOL[q.dtype] * scale, f"d{name}: {err} > {BWD_TOL[q.dtype]} * {scale}"
 
 
+def _fwd_agrees_scaled(q, k, v, causal, m):
+    """:func:`_fwd_agrees` for short rows (L 8-27): an output averages few
+    values and reaches 2-4, where a bf16 ulp is 2^-7 of it, so the tolerance
+    is TOL x max(1, the largest |plain|), as the backward's is."""
+    before = cuda_attention.launches
+    out = cuda_attention.fused_masked_attention(q, k, v, causal=causal, kv_mask=m)
+    torch.cuda.synchronize()
+    assert cuda_attention.launches == before + 1
+    ref = cuda_attention.attention_plain(q, k, v, causal=causal, kv_mask=m).float()
+    assert out.dtype == q.dtype and out.shape == q.shape
+    scale = max(1.0, ref.abs().max().item())
+    err = (out.float() - ref).abs().max().item()
+    assert err <= TOL[q.dtype] * scale, f"{err} > {TOL[q.dtype]} * {scale}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [False, True], ids=["keys", "causal"])
+def test_kernels_past_the_grid_y_limit(cuda, dtype, causal):
+    """N = B * H = 70,000 rows (35,000 x 2 heads, L 8, Dh 32): more than the
+    65,535 blocks CUDA allows on a grid's y axis, where the forward once put
+    N; a teacher-forced pass over a large minibatch reaches such N."""
+    q, k, v, do, m = _edge_inputs(cuda, 35_000, 8, 8, 32, dtype, seed=5)
+    m = None if causal else m
+    _fwd_agrees_scaled(q, k, v, causal, m)
+    _bwd_agrees(q, k, v, do, causal, m)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("Lk", EDGES)
 @pytest.mark.parametrize("Lq", EDGES)
@@ -358,7 +391,7 @@ def _check_decodes_agree(act, logp, ref_act, ref_logp, scores, nd, tol=DECODE_TO
         if diff.numel():
             top2 = scores[b, end].sort().values[-2:]
             assert top2[1] - top2[0] < near_tie, f"row {b}: action differs at agent {end}"
-        else:
+        elif nd < act.shape[1]:   # the discrete family has no tail
             assert (act[b, nd:] - ref_act[b, nd:]).abs().max() <= tol, f"row {b}: tail"
         if end:
             assert (logp[b, :end] - ref_logp[b, :end]).abs().max() <= tol, f"row {b}"
@@ -416,6 +449,73 @@ def test_ar_decode_kernel_short_decodes(cuda, A, B, masked):
     # A - 1 workers and the Gaussian tail agent (A = 1: the tail alone)
     cfg = dataclasses.replace(DCML, n_agent=A)
     _ar_decode_against_plain(cuda, cfg, B, True, masked, seed=A * 31 + B, on_chip=True)
+
+
+# SMAC's discrete whole decodes: 8m (8 agents, 14 actions) and the multi-map
+# layout (27 agents, 36 actions), no Gaussian tail
+SMAC_8M = MATConfig(n_agent=8, obs_dim=80, state_dim=168, action_dim=14, n_block=2, n_embd=64,
+                    n_head=2, action_type=DISCRETE)
+SMAC_MULTI = dataclasses.replace(SMAC_8M, n_agent=27, obs_dim=869, state_dim=1754,
+                                 action_dim=36)
+
+
+def smac_masks(device, B, A, adim, seed):
+    """SMAC-like availability ``(B, A, adim)``: a fifth of the agents dead
+    (the no-op alone), the rest stop, some moves and some attacks."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    avail = (torch.rand(B, A, adim, generator=g, device=device) > 0.5).float()
+    avail[..., 0], avail[..., 1] = 0.0, 1.0
+    dead = torch.rand(B, A, generator=g, device=device) < 0.2
+    avail[dead] = 0.0
+    avail[..., 0][dead] = 1.0
+    return avail
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("noise", [False, True], ids=["deterministic", "noise"])
+@pytest.mark.parametrize("cfg,B,recipe", [(SMAC_8M, 32, True), (SMAC_8M, 1, True),
+                                          (SMAC_MULTI, 36, False), (SMAC_MULTI, 8, False)],
+                         ids=["8m_b32", "8m_b1", "multi_b36", "multi_b8"])
+def test_ar_decode_kernel_at_smac_widths(cuda, cfg, B, recipe, noise, dtype):
+    """The discrete family (``nd = A``) on SMAC masks: the plan of
+    ``tests/test_torch_decode_plan.py`` (the multi-map widths take the
+    generic kernel in f32), agreement with the plain twin, and every action
+    available: a masked action (-1e10) is never drawn."""
+    cfg = dataclasses.replace(cfg, dtype=dtype)
+    weights = ard.pack_ar_decode_weights(_dcml_model(cuda, cfg=cfg, seed=B))
+    rep, gumbel, normal, _ = _decode_inputs(cuda, B, noise, False, seed=B, cfg=cfg)
+    avail = smac_masks(cuda, B, cfg.n_agent, cfg.action_dim, seed=B + 1)
+    plan = ard.kernel_plan(B, cfg.n_agent, n_embd=cfg.n_embd, n_head=cfg.n_head,
+                           n_block=cfg.n_block, adim=cfg.action_dim, dtype=cfg.trunk_dtype)
+    assert plan.on_chip and plan.recipe == (recipe or dtype == "bfloat16")
+    kw = dict(n_head=cfg.n_head, adim=cfg.action_dim, nd=cfg.n_agent)
+    before = ard.launches
+    act, logp = ard.fused_ar_decode(weights, rep, gumbel, normal, avail, **kw)
+    torch.cuda.synchronize()
+    assert ard.launches == before + 1
+    picked = avail.gather(-1, act.long()[..., None])
+    assert (picked == 1).all()
+    dead = avail[..., 1] == 0
+    assert (logp[dead] == 0).all()
+    ref = ard.ar_decode_plain(weights, rep, gumbel, normal, avail, return_scores=True, **kw)
+    bf16 = dtype == "bfloat16"
+    _check_decodes_agree(act, logp, *ref, cfg.n_agent,
+                         tol=BF16_DECODE_TOL if bf16 else DECODE_TOL,
+                         near_tie=BF16_NEAR_TIE if bf16 else NEAR_TIE)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("N,L,causal", [(6400, 8, False), (6400, 8, True), (64, 8, False),
+                                        (7200, 27, True), (72, 27, False)],
+                         ids=["8m_update", "8m_update_causal", "8m_rollout", "multi_update",
+                              "multi_rollout"])
+def test_attention_kernels_at_smac_shapes(cuda, dtype, N, L, causal):
+    """SMAC's attentions: L = 8 and 27 agents, far below one 16-row tile, at
+    the update's N = B * H (3,200 and 3,600 rows x 2 heads) and the
+    rollout's (32 and 36 x 2)."""
+    q, k, v, do, m = _edge_inputs(cuda, N // 2, L, L, 32, dtype, seed=N + L)
+    _fwd_agrees_scaled(q, k, v, causal, None)
+    _bwd_agrees(q, k, v, do, causal, None)
 
 
 @pytest.mark.parametrize("noise", [False, True], ids=["deterministic", "noise"])

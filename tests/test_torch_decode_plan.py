@@ -29,6 +29,10 @@ WAVE_CLUSTERS = 16        # 4-CTA clusters that run at once, one CTA an SM
 DCML = ("ar_decode", dict(n_embd=64, n_head=2, n_block=2, adim=2, n_pos=101))
 MUJOCO = ("decode_step", dict(n_embd=64, n_head=2, n_block=2, adim=8, n_pos=10, in_dim=8))
 STEP_101 = ("decode_step", dict(n_embd=64, n_head=2, n_block=2, adim=8, n_pos=101, in_dim=9))
+# SMAC's whole decodes (discrete, no Gaussian tail): 8m (8 agents, 14
+# actions) and the multi-map layout (27 agents, 36 actions)
+SMAC_8M = ("ar_decode", dict(n_embd=64, n_head=2, n_block=2, adim=14, n_pos=8))
+SMAC_MULTI = ("ar_decode", dict(n_embd=64, n_head=2, n_block=2, adim=36, n_pos=27))
 # the wrappers' limits (csrc/*.cu kMax*)
 AR_LIMITS = ("ar_decode", dict(n_embd=256, n_head=8, n_block=2, adim=64, n_pos=256))
 STEP_LIMITS = ("decode_step", dict(n_embd=256, n_head=8, n_block=2, adim=256, n_pos=256,
@@ -105,6 +109,31 @@ def test_plan_covers_every_row_once(lib, case, B, esize):
     assert sorted(r for part in parts for r in part) == list(range(B))   # each row, once
     assert all(len(part) >= 1 for part in parts)
     assert plan.clusters == -(-B // plan.rows)
+
+
+# (rows a cluster, the recipe's kernel, cluster barriers a position) of
+# SMAC's whole decodes, f32 and bf16: at 36 actions the f32 head's first
+# layer (and at 8 rows the MLP) no longer fits beside the rest, so the
+# multi-map decode takes the generic kernel with those matrices split; 8m
+# keeps every matrix whole, 7 KB over DCML's room for its wider action rows
+SMAC_PLANS = {("8m", 32): ((2, True, 8), (2, True, 8)),
+              ("8m", 1): ((2, True, 8), (2, True, 8)),
+              ("multi", 36): ((8, False, 12), (8, True, 8)),
+              ("multi", 8): ((2, False, 9), (2, True, 8))}
+
+
+@pytest.mark.parametrize("esize", [4, 2], ids=["f32", "bf16"])
+@pytest.mark.parametrize("key", list(SMAC_PLANS), ids=[f"{k}_b{b}" for k, b in SMAC_PLANS])
+def test_smac_whole_decodes_fit_on_chip(lib, key, esize):
+    """The rollout's batches (E 32 on 8m, 36 on the multi-map recipe) and
+    serving's: weights on chip, each row once, 2 rows a cluster up to B 32
+    and 8 from 33, as at DCML's widths, within the card's shared memory."""
+    case = {"8m": SMAC_8M, "multi": SMAC_MULTI}[key[0]]
+    B = key[1]
+    plan = _plan(lib, case, B, esize)
+    assert plan.on_chip and plan.cluster == 4 and plan.smem_bytes <= SMEM_LIMIT
+    assert plan.clusters == -(-B // plan.rows)
+    assert (plan.rows, plan.recipe, plan.barriers) == SMAC_PLANS[key][esize == 2]
 
 
 @pytest.mark.parametrize("case,barriers", [(DCML, 8), (MUJOCO, 10), (STEP_101, 10)],

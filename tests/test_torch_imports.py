@@ -37,7 +37,10 @@ def test_importing_the_port_loads_no_jax():
             "mat_dcml_tpu_torch.train_dcml", "mat_dcml_tpu_torch.ops.decode_step",
             "mat_dcml_tpu_torch.envs.mamujoco.lite", "mat_dcml_tpu_torch.envs.mamujoco.obsk",
             "mat_dcml_tpu_torch.training.mujoco_runner", "mat_dcml_tpu_torch.train_mujoco",
-            "mat_dcml_tpu_torch.probes.cache_layout"} <= set(mods)
+            "mat_dcml_tpu_torch.probes.cache_layout", "mat_dcml_tpu_torch.envs.smac.maps",
+            "mat_dcml_tpu_torch.envs.smac.smaclite", "mat_dcml_tpu_torch.envs.smac.translation",
+            "mat_dcml_tpu_torch.envs.permute", "mat_dcml_tpu_torch.training.smac_runner",
+            "mat_dcml_tpu_torch.train_smac", "mat_dcml_tpu_torch.train_smac_multi"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -189,17 +189,29 @@ def test_train_mujoco_runs_on_the_cpu(tmp_path, mode):
     assert records[0]["aver_episode_rewards"] < 0      # one 4-step episode a chunk ended
 
 
+def test_train_mujoco_random_order_runs_on_the_cpu(tmp_path):
+    """``--random_order`` (``envs/permute.py``; held against JAX in
+    ``tests/test_torch_smac_env.py``) trains through the permutation wrapper."""
+    train_mujoco.main(["--device", "cpu", "--num_env_steps", "16", "--n_rollout_threads", "2",
+                       "--episode_length", "4", "--n_embd", "16", "--n_block", "1",
+                       "--ppo_epoch", "1", "--num_mini_batch", "2", "--log_interval", "1",
+                       "--random_order", "--run_dir", str(tmp_path)])
+    path = tmp_path / "mujoco" / "HalfCheetah-v2_2x3" / "mat" / "check" / "metrics.jsonl"
+    records = [json.loads(line) for line in path.read_text().splitlines()]
+    assert len(records) == 2 and all(math.isfinite(v) for r in records for v in r.values())
+
+
 def test_train_mujoco_defaults():
-    run, ppo, env_cfg = train_mujoco.parse([])
+    run, ppo, env_cfg, random_order = train_mujoco.parse([])
+    assert not random_order
     assert (run.env_name, run.scenario, run.episode_length) == ("mujoco", "HalfCheetah-v2_2x3", 50)
     assert (env_cfg.scenario, env_cfg.agent_conf, env_cfg.agent_obsk) == ("HalfCheetah-v2", "2x3", 1)
     assert (run.n_rollout_threads, run.device, ppo.ppo_epoch, ppo.lr) == (8, "cuda", 15, 5e-5)
 
 
 @pytest.mark.parametrize("flags", [["--faulty_node", "1"], ["--eval_faulty_node", "0,1"],
-                                   ["--random_order"], ["--backend", "gym"],
-                                   ["--minibatch_layout", "contiguous"]],
-                         ids=["faulty_node", "eval_faulty_node", "random_order", "gym", "switch"])
+                                   ["--backend", "gym"], ["--minibatch_layout", "contiguous"]],
+                         ids=["faulty_node", "eval_faulty_node", "gym", "switch"])
 def test_train_mujoco_rejects_what_is_not_ported(flags):
     with pytest.raises((SystemExit, NotImplementedError)):
         train_mujoco.parse(["--device", "cpu", *flags])

@@ -5,6 +5,8 @@ both sides, numpy inputs from a seed, and the JAX key chain's sampling noise.
 
 from __future__ import annotations
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,11 +35,13 @@ def jax_params(jcfg, seed=0):
     scale: the reference init's 0.01-gain heads give logits near 0, which
     would let a wrong port pass a tolerance check."""
     A = jcfg.n_agent
-    init = JaxMAT(jcfg).init(
+    # only the tree's structure and shapes are read (every leaf is redrawn),
+    # so trace the init instead of running it op by op (8 s -> 0.5 s at 8m)
+    init = jax.eval_shape(lambda: JaxMAT(jcfg).init(
         jax.random.key(seed),
         jnp.zeros((1, A, jcfg.state_dim)), jnp.zeros((1, A, jcfg.obs_dim)),
         jnp.zeros((1, A, jcfg.action_input_dim)),
-    )
+    ))
     rng = np.random.default_rng(seed)
 
     def redraw(path, leaf):
@@ -51,7 +55,7 @@ def jax_params(jcfg, seed=0):
             arr = 0.1 * rng.normal(size=shape)
         return np.asarray(arr, np.float32)
 
-    return jax.tree_util.tree_map_with_path(redraw, jax.device_get(init))
+    return jax.tree_util.tree_map_with_path(redraw, init)
 
 
 def torch_model(tcfg, params):
@@ -154,14 +158,16 @@ def reference_logits(jcfg, params, state, obs, avail, act, gumbel):
 DECODE_KEY = 42
 
 
-def serve_decode_vs_jax(shape, deterministic, batch, mode, atol, margin=1e-5, **kw):
+def serve_decode_vs_jax(shape, deterministic, batch, mode, atol, margin=1e-5, data=None,
+                        params=None, **kw):
     """The port's ``serve_decode(mode=...)`` against JAX's on one seeded
-    batch, the stochastic case fed the noise replayed from JAX's key chain:
-    values within ``atol``, actions and log-probs by :func:`assert_decodes_agree`.
-    Returns the port's result."""
+    batch (or ``data = (state, obs, avail)``), the stochastic case fed the
+    noise replayed from JAX's key chain: values within ``atol``, actions and
+    log-probs by :func:`assert_decodes_agree`.  ``params``: the weights
+    (default :func:`jax_params`).  Returns the port's result."""
     jcfg, tcfg = configs(shape)
-    params = jax_params(jcfg)
-    state, obs, avail = inputs(jcfg, batch)
+    params = jax_params(jcfg) if params is None else params
+    state, obs, avail = inputs(jcfg, batch) if data is None else data
     v_ref, ref = jax_serve_decode(
         jcfg, params, jax.random.key(DECODE_KEY), state, obs, avail,
         deterministic=deterministic, mode=mode, **kw,
@@ -388,3 +394,69 @@ def compare_update_metrics(jmet, met, rtol=1e-5, ratio_atol=0.0):
                                    rtol=rtol, atol=1e-6, err_msg=name)
     np.testing.assert_allclose(float(met.update_ratio), float(jmet.update_ratio), rtol=1e-4,
                                atol=ratio_atol)
+
+
+# ----------------------------------------------------------- SMAC-lite draws
+
+def _smac_spawn_one(key, n_agents, n_enemies):
+    """``SMACLiteEnv._spawn``'s draws from ``key`` (``smaclite.py:173-179``):
+    ``k_a, k_e, key = split(key, 3)``, the jitters exactly as JAX's
+    ``uniform`` makes them, and the key the episode keeps."""
+    k_a, k_e, key = jax.random.split(key, 3)
+    return key, (jax.random.uniform(k_a, (n_agents, 2), minval=-0.5, maxval=0.5),
+                 jax.random.uniform(k_e, (n_enemies, 2), minval=-0.5, maxval=0.5))
+
+
+@functools.lru_cache(maxsize=None)
+def _smac_spawn(n_agents, n_enemies):
+    return jax.jit(jax.vmap(lambda k: _smac_spawn_one(k, n_agents, n_enemies)))
+
+
+@functools.lru_cache(maxsize=None)
+def _smac_step_keys(n_agents, n_enemies):
+    def one(rng):
+        key_next, k_spawn = jax.random.split(rng)
+        return key_next, _smac_spawn_one(k_spawn, n_agents, n_enemies)[1]
+    return jax.jit(jax.vmap(one))
+
+
+def _to_smac_reset(ja, je):
+    from mat_dcml_tpu_torch.envs.smac.smaclite import ResetDraws
+
+    return ResetDraws(torch.from_numpy(np.array(ja)), torch.from_numpy(np.array(je)))
+
+
+def smac_reset_draws(keys, n_agents, n_enemies):
+    """``(episode keys, port ResetDraws)`` of ``reset`` from the per-env JAX
+    keys ``(E,)``."""
+    nxt, (ja, je) = _smac_spawn(n_agents, n_enemies)(keys)
+    return nxt, _to_smac_reset(ja, je)
+
+
+def smac_step_draws(rngs, n_agents, n_enemies):
+    """``(next episode keys, port StepDraws)`` of one ``step`` from the env
+    states' keys: every step splits ``key_next, k_spawn`` and spawns from
+    ``k_spawn`` (``smaclite.py:414-415``); where the episode ends the state's
+    key becomes ``key_next``, else it stays (the caller selects)."""
+    from mat_dcml_tpu_torch.envs.smac.smaclite import StepDraws
+
+    key_next, (ja, je) = _smac_step_keys(n_agents, n_enemies)(rngs)
+    return key_next, StepDraws(_to_smac_reset(ja, je))
+
+
+def smac_next_rngs(rngs, key_next, done):
+    """The env states' keys after a step: ``key_next`` where ``done (E,)``."""
+    d = jnp.asarray(np.asarray(done))
+    return jax.random.wrap_key_data(jnp.where(d[:, None], jax.random.key_data(key_next),
+                                              jax.random.key_data(rngs)))
+
+
+@functools.lru_cache(maxsize=None)
+def _permutations(n):
+    return jax.jit(jax.vmap(lambda k: jax.random.permutation(k, n)))
+
+
+def jax_permutations(keys, n):
+    """``jax.random.permutation(k, n)`` for each key ``(E,)``, as an int64
+    tensor ``(E, n)``: the permutation wrapper's draw."""
+    return torch.from_numpy(np.array(_permutations(n)(keys))).long()
