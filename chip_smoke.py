@@ -17,7 +17,10 @@ Phases, each printed on its own line and each fatal on failure:
    planted-fault reading far outside the tolerance, and the kernel, plain,
    library and bound times: attention_fwd (f32 and bf16, serving shapes),
    attention_bwd (the PPO update's shapes, against autograd through the plain
-   forward), ar_decode, the whole decode, at full DCML width (B = 1, 3, 8,
+   forward; fed the forward's row statistics as the main path feeds it,
+   which must equal what it gives finding them itself), both timed in both
+   dtypes at DCML's and SMAC's shapes with kernel / SDPA and kernel / bound
+   beside each, ar_decode, the whole decode, at full DCML width (B = 1, 3, 8,
    9, 17, 128; deterministic and with noise; avail masked and None), on
    short decodes (A = 1, 2, 10), with weights in device memory (n_embd 256)
    and off the recipe's widths (4 heads, n_embd 32: the generic kernel),
@@ -144,8 +147,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 # product: 495 / 3 TFLOP/s), bf16 on the tensor cores, dense
 PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 # f32 outside the tensor cores: the peak of the decode kernels' bounds, whose
-# f32 arithmetic runs there, and of the attention kernels' old bound (printed
-# beside the new one)
+# f32 arithmetic runs there
 F32_SIMT_FLOPS = 67e12
 # bf16: both sides round P and the output to bf16, so a sound kernel may
 # differ from plain by an ulp of the output (3.9e-3 below 1); a kernel that
@@ -156,6 +158,9 @@ TOL = {"float32": 1e-5, "bfloat16": 8e-3}
 # 101 terms in another order can move a bf16 result by an ulp, at most 2**-7
 # of its size; a dropped key moves gradients by 24-92x that (phase 2 prints it)
 BWD_TOL = {"float32": 1e-5, "bfloat16": 2.0**-7}
+# the forward's row statistics (softmax max and sum) against the plain
+# version's, relative to max(1, |plain|): f32 summation order only
+STATS_TOL = 1e-5
 LOGP_ATOL_VS_CPU = 1e-4
 NEAR_TIE = 1e-5
 # whole decode, kernel vs plain: log-probs (and the tail's action) within
@@ -346,8 +351,9 @@ def _bound(q, k, mask, dtype_name, causal=False, peak=None):
 
 
 def phase2_kernels(torch):
-    import torch.nn.functional as F
-
+    """attention_fwd against the plain version in both dtypes at the
+    serving and training shapes, with a planted fault the tolerance must
+    catch; returns ``{(case, dtype): max error}``."""
     from mat_dcml_tpu_torch.ops import cuda_attention as ca
 
     dev = torch.device("cuda")
@@ -389,47 +395,8 @@ def phase2_kernels(torch):
         if not fault > TOL[name]:
             raise AssertionError(f"tolerance {TOL[name]} would pass a dropped key ({fault})")
 
-    shapes = {}
-    say(f"[phase 2] bounds take f32 at {PEAK_FLOPS['float32'] / 1e12:.0f} TFLOP/s (3xTF32 on the "
-        f"tensor cores); the old bound (f32 outside them, {F32_SIMT_FLOPS / 1e12:.0f} TFLOP/s) "
-        "is printed beside it")
-    # the main path's shapes: the encoder at bucket 128 and at the rollout's
-    # batch, the update's causal decoder attention (minibatch 100), the
-    # cached decode step with every key valid at bucket 128 and half of them
-    # at bucket 32 and at the rollout's batch
-    for label, B, lq, causal, mask in (
-            ("encoder", N_B, A, False, None),
-            ("encoder_b8", 8, A, False, None),
-            ("update_causal", 100, A, True, None),
-            ("decode", N_B, 1, False, torch.arange(A, device=dev) <= A - 1),
-            ("decode_b32", 32, 1, False, torch.arange(A, device=dev) <= 50),
-            ("decode_b8", 8, 1, False, torch.arange(A, device=dev) <= 50)):
-        q, k, v = qkv(B, lq, A, torch.float32)
-        sdpa_mask = None if mask is None else mask[None, None, None, :]
-        ms, eager_ms = _time_ms(
-            torch, lambda: ca.fused_masked_attention(q, k, v, causal=causal, kv_mask=mask))
-        plain_ms, plain_eager_ms = _time_ms(
-            torch, lambda: ca.attention_plain(q, k, v, causal=causal, kv_mask=mask))
-        lib_ms, lib_eager_ms = _time_ms(
-            torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask,
-                                                          is_causal=causal))
-        bound_ms, bound_by = _bound(q, k, mask, "float32", causal)
-        old_bound_ms, old_bound_by = _bound(q, k, mask, "float32", causal, peak=F32_SIMT_FLOPS)
-        shapes[label] = {"shape": f"q {tuple(q.shape)} k {tuple(k.shape)} f32, causal {causal}, "
-                                  f"keys valid {A if mask is None else int(mask.sum())}",
-                         "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                         "bound_ms": bound_ms, "bound_by": bound_by,
-                         "bound_f32_simt_ms": old_bound_ms, "bound_f32_simt_by": old_bound_by,
-                         "eager_ms": eager_ms, "plain_eager_ms": plain_eager_ms,
-                         "library_eager_ms": lib_eager_ms}
-        say(f"[phase 2] time {label} f32 {tuple(q.shape)}, device (eager) per call: "
-            f"kernel {ms * 1e3:.2f} ({eager_ms * 1e3:.2f}) us, "
-            f"plain {plain_ms * 1e3:.2f} ({plain_eager_ms * 1e3:.2f}) us, "
-            f"sdpa {lib_ms * 1e3:.2f} ({lib_eager_ms * 1e3:.2f}) us, "
-            f"bound {bound_ms * 1e3:.2f} us ({bound_by}; old bound {old_bound_ms * 1e3:.2f} us "
-            f"{old_bound_by}); L2-warm")
     torch.cuda.synchronize()
-    return errs, shapes
+    return errs
 
 
 def _bwd_bound(q, causal, dtype_name, peak=None):
@@ -446,15 +413,14 @@ def _bwd_bound(q, causal, dtype_name, peak=None):
 
 def phase2_backward(torch):
     """attention_bwd against autograd through the plain forward at the PPO
-    update's shapes (minibatch 100 rows x 2 heads, L = 101, Dh = 32)."""
-    import torch.nn.functional as F
-
+    update's shapes (minibatch 100 rows x 2 heads, L = 101, Dh = 32), alone
+    and fed the forward's row statistics as the main path feeds it."""
     from mat_dcml_tpu_torch.ops import cuda_attention as ca
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     B, H, L, Dh = 100, 2, 101, 32
-    errs, shapes = {}, {}
+    errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         for label, causal in (("encoder", False), ("decoder_causal", True)):
@@ -480,38 +446,23 @@ def phase2_backward(torch):
                 f"max|diff| = {fault:.3g}")
             if not fault > BWD_TOL[name] * scale:
                 raise AssertionError(f"backward tolerance would pass a dropped key ({fault})")
-            if dtype != torch.float32:
-                continue
-            ms, eager_ms = _time_ms(torch, lambda: ca.attention_bwd(q, k, v, do, causal=causal))
-            plain_ms, plain_eager_ms = _time_ms(
-                torch, lambda: ca.attention_bwd_plain(q, k, v, do, causal=causal))
-            # SDPA's backward alone, on the device as the kernel is timed: its
-            # forward and backward captured together, less its forward alone
-            leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
-
-            def sdpa():
-                return F.scaled_dot_product_attention(*leaves, is_causal=causal)
-
-            lib_fb_ms, _ = _time_ms(torch, lambda: torch.autograd.grad(sdpa(), leaves, do))
-            lib_f_ms, _ = _time_ms(torch, sdpa)
-            lib_ms = lib_fb_ms - lib_f_ms
-            bound_ms, bound_by = _bwd_bound(q, causal, name)
-            old_bound_ms, old_bound_by = _bwd_bound(q, causal, name, peak=F32_SIMT_FLOPS)
-            shapes[label] = {"shape": f"q/k/v/dO {tuple(q.shape)} f32, causal {causal}",
-                             "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                             "bound_ms": bound_ms, "bound_by": bound_by,
-                             "bound_f32_simt_ms": old_bound_ms,
-                             "bound_f32_simt_by": old_bound_by, "eager_ms": eager_ms,
-                             "plain_eager_ms": plain_eager_ms,
-                             "library_fwd_bwd_ms": lib_fb_ms, "library_fwd_ms": lib_f_ms}
-            say(f"[phase 2] time bwd {label} f32 {tuple(q.shape)}, device (eager) per call: "
-                f"kernel {ms * 1e3:.2f} ({eager_ms * 1e3:.2f}) us, "
-                f"plain fwd+bwd {plain_ms * 1e3:.2f} ({plain_eager_ms * 1e3:.2f}) us, "
-                f"sdpa bwd {lib_ms * 1e3:.2f} us (fwd+bwd {lib_fb_ms * 1e3:.2f} less fwd "
-                f"{lib_f_ms * 1e3:.2f}), bound {bound_ms * 1e3:.2f} us ({bound_by}; old bound "
-                f"{old_bound_ms * 1e3:.2f} us {old_bound_by}); L2-warm")
+            # the main path's call: the forward's row statistics fed to the
+            # backward, which must give what it gives finding them itself
+            stats = torch.empty(2, B * H, L, device=dev)
+            ca.attention_fwd(q, k, v, causal=causal, stats=stats)
+            ref_stats = ca.attention_stats_plain(q, k, causal=causal)
+            serr = ((stats - ref_stats).abs() / ref_stats.abs().clamp(min=1.0)).max().item()
+            fed = ca.attention_bwd(q, k, v, do, causal=causal, stats=stats)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(fed, grads))
+            errs[(label + "_stats", name)] = serr
+            say(f"[phase 2] bwd {label} {name}: forward's row statistics vs plain, relative "
+                f"{serr:.3g} (tol {STATS_TOL}); backward fed them equal to the backward finding "
+                f"them itself: {same}")
+            if not (serr <= STATS_TOL and same):
+                raise AssertionError(f"row statistics {label} {name}: error {serr}, equal {same}")
     torch.cuda.synchronize()
-    return errs, shapes
+    return errs
 
 
 def phase2_large_n(torch):
@@ -899,12 +850,20 @@ def phase2_decode_step(torch):
     return worst, shapes
 
 
-def phase2_attention_bf16(torch):
-    """The attention kernels' bf16 legs timed at the main path's shapes, the
-    bf16 trunk's: the forward at the encoder's (bucket 128 and the rollout's
-    batch), the cached decode step and the update's causal decoder, the
-    backward at the update's; against SDPA in bf16 and the bound at the bf16
-    tensor-core peak."""
+def _ratios(ms, lib_ms, bound_ms):
+    return {"vs_library": ms / lib_ms if lib_ms > 0 else None, "vs_bound": ms / bound_ms}
+
+
+def phase2_attention_times(torch):
+    """Both attention kernels timed in both dtypes at the main path's shapes:
+    DCML's (the encoder at bucket 128 and at the rollout's batch, the
+    update's causal decoder, the cached decode step at buckets 128, 32 and
+    8) and SMAC's (phase 11's: the update's 3,200 and 3,600 rows x 2 heads
+    at L 8 and 27, the rollout's, the cached decode), each beside its plain
+    version, SDPA in the same dtype and its bound, with kernel / SDPA and
+    kernel / bound.  The bf16 backward is timed as the main path calls it,
+    fed the forward's row statistics.  Returns ``{dtype: (forward rows,
+    backward rows)}``, rows by label."""
     import torch.nn.functional as F
 
     from mat_dcml_tpu_torch.ops import cuda_attention as ca
@@ -912,54 +871,88 @@ def phase2_attention_bf16(torch):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 8)
     H, A, Dh = 2, 101, 32
-    shapes = {}
+    keys = lambda n, i: torch.arange(n, device=dev) <= i   # noqa: E731
+    fwd_cases = (("encoder", 128, A, A, False, None), ("encoder_b8", 8, A, A, False, None),
+                 ("update_causal", 100, A, A, True, None),
+                 ("decode", 128, 1, A, False, keys(A, A - 1)),
+                 ("decode_b32", 32, 1, A, False, keys(A, 50)),
+                 ("decode_b8", 8, 1, A, False, keys(A, 50)),
+                 ("8m_update", SMAC_E * SMAC_T, 8, 8, False, None),
+                 ("8m_update_causal", SMAC_E * SMAC_T, 8, 8, True, None),
+                 ("8m_rollout", SMAC_E, 8, 8, False, None),
+                 ("8m_decode_i3", SMAC_E, 1, 8, False, keys(8, 3)),
+                 ("multi_update", MULTI_E * SMAC_T, 27, 27, False, None),
+                 ("multi_update_causal", MULTI_E * SMAC_T, 27, 27, True, None),
+                 ("multi_rollout", MULTI_E, 27, 27, False, None),
+                 ("multi_decode_i13", MULTI_E, 1, 27, False, keys(27, 13)))
+    bwd_cases = (("encoder", 100, A, False), ("decoder_causal", 100, A, True),
+                 ("8m_update", SMAC_E * SMAC_T, 8, False),
+                 ("8m_update_causal", SMAC_E * SMAC_T, 8, True), ("8m_rollout", SMAC_E, 8, False),
+                 ("multi_update", MULTI_E * SMAC_T, 27, False),
+                 ("multi_update_causal", MULTI_E * SMAC_T, 27, True),
+                 ("multi_rollout", MULTI_E, 27, False))
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        fwd, bwd = {}, {}
+        for label, B, lq, lk, causal, mask in fwd_cases:
+            q, k, v = (torch.randn(B, H, n, Dh, generator=g, device=dev).to(dtype)
+                       for n in (lq, lk, lk))
+            sdpa_mask = None if mask is None else mask[None, None, None, :]
+            ms, eager_ms = _time_ms(
+                torch, lambda: ca.fused_masked_attention(q, k, v, causal=causal, kv_mask=mask))
+            plain_ms, _ = _time_ms(
+                torch, lambda: ca.attention_plain(q, k, v, causal=causal, kv_mask=mask))
+            lib_ms, _ = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=sdpa_mask, is_causal=causal))
+            bound_ms, bound_by = _bound(q, k, mask, name, causal)
+            fwd[label] = {"shape": f"q {tuple(q.shape)} k {tuple(k.shape)} {name}, causal "
+                                   f"{causal}, keys valid {lk if mask is None else int(mask.sum())}",
+                          "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+                          "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                          **_ratios(ms, lib_ms, bound_ms)}
+            say(f"[phase 2] time {label} {name} {tuple(q.shape)}, device (eager) per call: "
+                f"kernel {ms * 1e3:.2f} ({eager_ms * 1e3:.2f}) us, plain {plain_ms * 1e3:.2f} us, "
+                f"sdpa {lib_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.3f} us ({bound_by}); "
+                f"kernel / sdpa {ms / lib_ms:.2f}, kernel / bound {ms / bound_ms:.1f}; L2-warm")
+        for label, B, L, causal in bwd_cases:
+            q, k, v, do = (torch.randn(B, H, L, Dh, generator=g, device=dev).to(dtype)
+                           for _ in range(4))
+            stats = None
+            if dtype == torch.bfloat16:
+                stats = torch.empty(2, B * H, L, device=dev)
+                ca.attention_fwd(q, k, v, causal=causal, stats=stats)
+            ms, eager_ms = _time_ms(
+                torch, lambda: ca.attention_bwd(q, k, v, do, causal=causal, stats=stats))
+            plain_ms, _ = _time_ms(
+                torch, lambda: ca.attention_bwd_plain(q, k, v, do, causal=causal))
+            # SDPA's backward alone, on the device as the kernel is timed: its
+            # forward and backward captured together, less its forward alone
+            leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
 
-    def qkv(B, lq):
-        return [torch.randn(B, H, n, Dh, generator=g, device=dev).bfloat16() for n in (lq, A, A)]
+            def sdpa():
+                return F.scaled_dot_product_attention(*leaves, is_causal=causal)
 
-    for label, B, lq, causal, mask in (
-            ("encoder", 128, A, False, None), ("encoder_b8", 8, A, False, None),
-            ("update_causal", 100, A, True, None),
-            ("decode", 128, 1, False, torch.arange(A, device=dev) <= A - 1)):
-        q, k, v = qkv(B, lq)
-        sdpa_mask = None if mask is None else mask[None, None, None, :]
-        ms, eager_ms = _time_ms(
-            torch, lambda: ca.fused_masked_attention(q, k, v, causal=causal, kv_mask=mask))
-        plain_ms, _ = _time_ms(torch, lambda: ca.attention_plain(q, k, v, causal=causal,
-                                                                  kv_mask=mask))
-        lib_ms, _ = _time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=sdpa_mask, is_causal=causal))
-        bound_ms, bound_by = _bound(q, k, mask, "bfloat16", causal)
-        shapes[label] = {"shape": f"q {tuple(q.shape)} k {tuple(k.shape)} bf16, causal {causal}",
-                         "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
-                         "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by}
-        say(f"[phase 2] time {label} bf16 {tuple(q.shape)}, device (eager) per call: kernel "
-            f"{ms * 1e3:.2f} ({eager_ms * 1e3:.2f}) us, plain {plain_ms * 1e3:.2f} us, sdpa bf16 "
-            f"{lib_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us ({bound_by}); L2-warm")
-    bwd = {}
-    for label, causal in (("encoder", False), ("decoder_causal", True)):
-        q, k, v = qkv(100, A)
-        do = torch.randn(100, H, A, Dh, generator=g, device=dev).bfloat16()
-        ms, eager_ms = _time_ms(torch, lambda: ca.attention_bwd(q, k, v, do, causal=causal))
-        plain_ms, _ = _time_ms(torch, lambda: ca.attention_bwd_plain(q, k, v, do, causal=causal))
-        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
-
-        def sdpa():
-            return F.scaled_dot_product_attention(*leaves, is_causal=causal)
-
-        lib_fb_ms, _ = _time_ms(torch, lambda: torch.autograd.grad(sdpa(), leaves, do))
-        lib_f_ms, _ = _time_ms(torch, sdpa)
-        bound_ms, bound_by = _bwd_bound(q, causal, "bfloat16")
-        bwd[label] = {"shape": f"q/k/v/dO {tuple(q.shape)} bf16, causal {causal}", "ms": ms,
-                      "eager_ms": eager_ms, "plain_ms": plain_ms,
-                      "library_ms": lib_fb_ms - lib_f_ms, "bound_ms": bound_ms,
-                      "bound_by": bound_by}
-        say(f"[phase 2] time bwd {label} bf16 {tuple(q.shape)}, device (eager) per call: kernel "
-            f"{ms * 1e3:.2f} ({eager_ms * 1e3:.2f}) us, plain fwd+bwd {plain_ms * 1e3:.2f} us, "
-            f"sdpa bf16 bwd {(lib_fb_ms - lib_f_ms) * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
-            f"({bound_by}); L2-warm")
+            lib_fb_ms, _ = _time_ms(torch, lambda: torch.autograd.grad(sdpa(), leaves, do))
+            lib_f_ms, _ = _time_ms(torch, sdpa)
+            lib_ms = lib_fb_ms - lib_f_ms
+            bound_ms, bound_by = _bwd_bound(q, causal, name)
+            bwd[label] = {"shape": f"q/k/v/dO {tuple(q.shape)} {name}, causal {causal}",
+                          "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+                          "library_ms": lib_ms, "library_fwd_bwd_ms": lib_fb_ms,
+                          "library_fwd_ms": lib_f_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                          "stats_fed": stats is not None, **_ratios(ms, lib_ms, bound_ms)}
+            say(f"[phase 2] time bwd {label} {name} {tuple(q.shape)}, device (eager) per call: "
+                f"kernel {ms * 1e3:.2f} ({eager_ms * 1e3:.2f}) us"
+                f"{' (fed the row statistics)' if stats is not None else ''}, plain fwd+bwd "
+                f"{plain_ms * 1e3:.2f} us, sdpa bwd {lib_ms * 1e3:.2f} us (fwd+bwd "
+                f"{lib_fb_ms * 1e3:.2f} less fwd {lib_f_ms * 1e3:.2f}), bound "
+                f"{bound_ms * 1e3:.3f} us ({bound_by}); kernel / sdpa "
+                f"{ms / lib_ms if lib_ms > 0 else float('nan'):.2f}, kernel / bound "
+                f"{ms / bound_ms:.1f}; L2-warm")
+        out[name] = (fwd, bwd)
     torch.cuda.synchronize()
-    return shapes, bwd
+    return out
 
 
 def phase2_ar_decode_bf16(torch):
@@ -2455,15 +2448,13 @@ def _smac_configs():
 
 def phase11_kernels(torch):
     """(b) The three kernels of the SMAC paths against their plain versions
-    at SMAC's shapes, f32 and bf16, each f32 one timed beside its plain
-    version, SDPA (attention) and its bound: attention forward and backward
-    at the update's (3,200 and 3,600 rows x 2 heads, L 8 and 27) and the
-    rollout's (32 and 36 rows; the cached decode's Lq = 1), ar_decode at
-    the rollout's batch (B 32, A 8, adim 14; B 36, A 27, adim 36) with the
-    env's own masks, every action it draws available."""
+    at SMAC's shapes, f32 and bf16: attention forward and backward at the
+    update's (3,200 and 3,600 rows x 2 heads, L 8 and 27) and the rollout's
+    (32 and 36 rows; the cached decode's Lq = 1), timed in phase 2;
+    ar_decode at the rollout's batch (B 32, A 8, adim 14; B 36, A 27, adim
+    36) with the env's own masks, every action it draws available, its f32
+    leg timed beside its plain version and its bound."""
     import dataclasses
-
-    import torch.nn.functional as F
 
     from mat_dcml_tpu_torch.envs.smac.smaclite import SMACLiteConfig, SMACLiteEnv
     from mat_dcml_tpu_torch.envs.smac.translation import TranslatedSMACEnv
@@ -2475,7 +2466,7 @@ def phase11_kernels(torch):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 21)
     H, Dh = 2, 32
-    fwd_shapes, bwd_shapes, ar_shapes, errs = {}, {}, {}, {}
+    ar_shapes, errs = {}, {}
     cases = (("8m_update", SMAC_E * SMAC_T, 8, 8, False, None),
              ("8m_update_causal", SMAC_E * SMAC_T, 8, 8, True, None),
              ("8m_rollout", SMAC_E, 8, 8, False, None),
@@ -2514,44 +2505,6 @@ def phase11_kernels(torch):
                 f"max|kernel - plain| {err:.3g} (tol {TOL[name]} x {fscale:.3g})"
                 + (f", backward {errs[('bwd', label, name)]:.3g} (tol {BWD_TOL[name]} x the "
                    "largest gradient)" if lq > 1 else ""))
-            if dtype != torch.float32:
-                continue
-            sdpa_mask = None if mask is None else mask[None, None, None, :]
-            ms, eager_ms = _time_ms(
-                torch, lambda: ca.fused_masked_attention(q, k, v, causal=causal, kv_mask=mask))
-            plain_ms, _ = _time_ms(
-                torch, lambda: ca.attention_plain(q, k, v, causal=causal, kv_mask=mask))
-            lib_ms, _ = _time_ms(torch, lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=sdpa_mask, is_causal=causal))
-            bound_ms, bound_by = _bound(q, k, mask, "float32", causal)
-            fwd_shapes[label] = {"shape": f"q {tuple(q.shape)} k {tuple(k.shape)} f32, causal "
-                                          f"{causal}", "ms": ms, "eager_ms": eager_ms,
-                                 "plain_ms": plain_ms, "library_ms": lib_ms,
-                                 "bound_ms": bound_ms, "bound_by": bound_by}
-            say(f"{tag} time attention {label} f32, device (eager) per call: kernel "
-                f"{ms * 1e3:.2f} ({eager_ms * 1e3:.2f}) us, plain {plain_ms * 1e3:.2f} us, sdpa "
-                f"{lib_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.3f} us ({bound_by}); L2-warm")
-            if lq == 1:
-                continue
-            ms, eager_ms = _time_ms(torch, lambda: ca.attention_bwd(q, k, v, do, causal=causal))
-            plain_ms, _ = _time_ms(torch,
-                                   lambda: ca.attention_bwd_plain(q, k, v, do, causal=causal))
-            leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
-
-            def sdpa():
-                return F.scaled_dot_product_attention(*leaves, is_causal=causal)
-
-            lib_fb_ms, _ = _time_ms(torch, lambda: torch.autograd.grad(sdpa(), leaves, do))
-            lib_f_ms, _ = _time_ms(torch, sdpa)
-            bound_ms, bound_by = _bwd_bound(q, causal, "float32")
-            bwd_shapes[label] = {"shape": f"q/k/v/dO {tuple(q.shape)} f32, causal {causal}",
-                                 "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
-                                 "library_ms": lib_fb_ms - lib_f_ms, "bound_ms": bound_ms,
-                                 "bound_by": bound_by}
-            say(f"{tag} time attention_bwd {label} f32, device (eager) per call: kernel "
-                f"{ms * 1e3:.2f} ({eager_ms * 1e3:.2f}) us, plain fwd+bwd {plain_ms * 1e3:.2f} "
-                f"us, sdpa bwd {(lib_fb_ms - lib_f_ms) * 1e3:.2f} us, bound "
-                f"{bound_ms * 1e3:.3f} us ({bound_by}); L2-warm")
 
     cfgs = _smac_configs()
     envs = {"8m": (SMACLiteEnv(SMACLiteConfig("8m")), SMAC_E),
@@ -2605,7 +2558,7 @@ def phase11_kernels(torch):
                     f"{ms:.3f} ({eager_ms:.3f}) ms, plain {plain_ms:.2f} ms, bound "
                     f"{bound_ms * 1e3:.2f} us ({bound_by}); L2-warm")
     torch.cuda.synchronize()
-    return fwd_shapes, bwd_shapes, ar_shapes, errs
+    return ar_shapes, errs
 
 
 def _smac_expected(cfg, run, ppo, mode, iters=1):
@@ -2916,13 +2869,14 @@ def main() -> int:
     phase1_build()
     say(f"[time] build done at {time.perf_counter() - t_start:.1f}s")
     torch.cuda.synchronize()
-    errs, shapes = phase2_kernels(torch)
-    bwd_errs, bwd_shapes = phase2_backward(torch)
+    errs = phase2_kernels(torch)
+    bwd_errs = phase2_backward(torch)
     large_n = phase2_large_n(torch)
     ar_err, ar_shapes = phase2_ar_decode(torch)
     step_err, step_shapes = phase2_decode_step(torch)
     say(f"[time] f32 kernel checks done at {time.perf_counter() - t_start:.1f}s")
-    attn16, attn16_bwd = phase2_attention_bf16(torch)
+    attn_times = phase2_attention_times(torch)
+    say(f"[time] attention timings done at {time.perf_counter() - t_start:.1f}s")
     ar16_err, ar16_flips, ar16_fault, ar16_shapes = phase2_ar_decode_bf16(torch)
     st16_err, st16_share, st16_fault, st16_shapes = phase2_decode_step_bf16(torch)
     say(f"[time] bf16 kernel checks done at {time.perf_counter() - t_start:.1f}s")
@@ -2957,12 +2911,21 @@ def main() -> int:
     mo_paths, mo_readings = phase10_mat_family(torch, card, ckpt_readings["deterministic"],
                                                ckpt_readings["spread"])
     say(f"[time] MAT family phase done at {time.perf_counter() - t_start:.1f}s")
-    smac_fwd, smac_bwd, smac_ar, smac_errs = phase11_kernels(torch)
+    smac_ar, smac_errs = phase11_kernels(torch)
     smac_paths, smac_readings = phase11_smac(torch, card, ckpt_readings["deterministic"],
                                              ckpt_readings["spread"])
     smac_readings["kernel_errors"] = {" ".join(k): v for k, v in smac_errs.items()}
     say(f"[time] SMAC phase done at {time.perf_counter() - t_start:.1f}s")
 
+    smac_labels = ("8m_", "multi_")
+
+    def split(rows):
+        """``(DCML's rows, SMAC's rows)``."""
+        return ({k: v for k, v in rows.items() if not k.startswith(smac_labels)},
+                {k: v for k, v in rows.items() if k.startswith(smac_labels)})
+
+    (shapes, smac_fwd), (bwd_shapes, smac_bwd) = (split(r) for r in attn_times["float32"])
+    attn16, attn16_bwd = attn_times["bfloat16"]
     dec = shapes["decode"]
     f32_err = max(e for (_, dt), e in errs.items() if dt == "float32")
     bf16_err = max(e for (_, dt), e in errs.items() if dt == "bfloat16")
@@ -3025,11 +2988,15 @@ def main() -> int:
         "replaces": "mat_dcml_tpu/ops/pallas_attention.py:153",
         "launches": sum(bwd_paths.values()),
         "launches_by_path": bwd_paths,
-        "max_abs_err": max(e for (_, dt), e in bwd_errs.items() if dt == "float32"),
+        "max_abs_err": max(e for (lb, dt), e in bwd_errs.items()
+                           if dt == "float32" and not lb.endswith("_stats")),
         "ms": enc["ms"], "plain_ms": enc["plain_ms"], "bound_ms": enc["bound_ms"],
         "bound_by": enc["bound_by"], "library_ms": enc["library_ms"],
         "timed_at": "encoder",
-        "max_abs_err_bf16": max(e for (_, dt), e in bwd_errs.items() if dt == "bfloat16"),
+        "max_abs_err_bf16": max(e for (lb, dt), e in bwd_errs.items()
+                                if dt == "bfloat16" and not lb.endswith("_stats")),
+        "row_statistics_rel_err": max(e for (lb, _), e in bwd_errs.items()
+                                      if lb.endswith("_stats")),
         "shapes": bwd_shapes,
         "smac_shapes": smac_bwd,
         "past_grid_y_limit": {" ".join(k): v[1] for k, v in large_n.items()},
@@ -3093,8 +3060,9 @@ def main() -> int:
     }
     bf16_legs = {
         "attention_fwd": {"max_abs_err": bf16_err, "shapes": attn16},
-        "attention_bwd": {"max_abs_err": max(e for (_, dt), e in bwd_errs.items()
-                                             if dt == "bfloat16"), "shapes": attn16_bwd},
+        "attention_bwd": {"max_abs_err": max(e for (lb, dt), e in bwd_errs.items()
+                                             if dt == "bfloat16" and not lb.endswith("_stats")),
+                          "shapes": attn16_bwd},
         "ar_decode": {"max_abs_err": ar16_err, "max_abs_err_of": "log-prob",
                       "tol": BF16_AR_TOL, "near_tie_rows": ar16_flips,
                       "planted_fault": ar16_fault, "launches": sum(ar_paths[k] for k in paths16),

@@ -6,12 +6,16 @@
 // m16n8 tiles computed by one warp with mma.sync:
 //   - bf16 inputs: m16n8k16 bf16 with f32 accumulate (the products of bf16
 //     values are exact in f32, as in the plain version's f32 matmul of
-//     upcast inputs);
+//     upcast inputs); fragments come from shared memory by ldmatrix (x4: a
+//     whole A tile, or the B fragments of two 8-wide tiles, in one
+//     instruction; .trans where the operand lies transposed, as V does in
+//     P.V);
 //   - f32 inputs: 3xTF32 on m16n8k8.  Each value is split as a = big + small
 //     with big = tf32(a) and small = tf32(a - big) (Mma<float>::split); a
 //     product keeps
 //     small*big + big*small + big*big, accumulated in f32, which holds f32
 //     accuracy (one TF32 pass keeps ~3 decimal digits and is never used).
+//     Its fragments are 32-bit scalar loads (ldmatrix moves 16-bit elements).
 // An operand that must keep f32 precision under bf16 inputs (dS in the
 // backward) is split the same way into two bf16 halves (2 products).
 //
@@ -20,12 +24,15 @@
 // (g+8, 2t+1).  A product whose A operand comes from accumulators (P.V, dS.K,
 // ...) takes the depth in the order the accumulator holds it: for tf32,
 // depth index t is column 2t and t+4 is 2t+1; b_cols reads B in that order.
+// For bf16 that order is the natural one.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "attention_plan.cuh"
 
 namespace attn {
 
@@ -143,6 +150,22 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// ldmatrix: four 8 x 8 matrices of 16-bit elements, lanes 8 i .. 8 i + 7
+// giving the row addresses of matrix i; lane 4 g + t receives elements
+// (g, 2t) and (g, 2t + 1) of each (with .trans, (2t, g) and (2t + 1, g)).
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
 // An operand fragment: hi is the operand, lo the part hi drops (3xTF32, or
 // dS's second bf16 half); a B fragment uses entries 0 and 1.
 struct Frag {
@@ -194,6 +217,22 @@ template <> struct Mma<float> {
     split(p[ld], f.hi[1], f.lo[1]);
     return f;
   }
+  // the loaders the forward shares with bf16: a whole 16-row A tile, and
+  // the B fragments of the 8-wide tiles n0 and n0 + 8 (the second only
+  // where two)
+  static __device__ __forceinline__ Frag a_tile(const float* s, int ld, int r0, int k0, int lane) {
+    return a_rows(s, ld, r0, k0, lane, true);
+  }
+  static __device__ __forceinline__ void b_rows2(const float* s, int ld, int n0, int k0, int lane,
+                                                 Frag& b0, Frag& b1, bool two) {
+    b0 = b_rows(s, ld, n0, k0, lane);
+    if (two) b1 = b_rows(s, ld, n0 + 8, k0, lane);
+  }
+  static __device__ __forceinline__ void b_cols2(const float* s, int ld, int k0, int n0, int lane,
+                                                 Frag& b0, Frag& b1, bool two) {
+    b0 = b_cols(s, ld, k0, n0, lane);
+    if (two) b1 = b_cols(s, ld, k0, n0 + 8, lane);
+  }
   // A from the accumulator tile c (the depth is its 8 columns; c2 unused)
   static __device__ __forceinline__ Frag a_acc(const float* c, const float*) {
     Frag f;
@@ -220,12 +259,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 // The bf16 pair (lo, hi) of x0, x1, with lo holding what hi drops.
 __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
@@ -236,30 +269,31 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uin
 template <> struct Mma<__nv_bfloat16> {
   using T = __nv_bfloat16;
   static constexpr int kK = 16;
-  static constexpr int kPad = 8;   // row stride of 4 mod 8 words
-  static __device__ __forceinline__ Frag a_rows(const T* s, int ld, int r0, int k0, int lane,
-                                                bool hi_ok) {
-    const T* p = s + (r0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3);
+  static constexpr int kPad = 8;   // row stride an odd multiple of 16 bytes
+  // A[r][k] = s[(r0 + r) * ld + k0 + k]
+  static __device__ __forceinline__ Frag a_tile(const T* s, int ld, int r0, int k0, int lane) {
     Frag f;
-    f.hi[0] = ld32(p);
-    f.hi[2] = ld32(p + 8);
-    f.hi[1] = hi_ok ? ld32(p + 8 * ld) : 0u;
-    f.hi[3] = hi_ok ? ld32(p + 8 * ld + 8) : 0u;
+    ldsm_x4(f.hi, s + (r0 + (lane & 15)) * ld + k0 + (lane >> 4) * 8);
     return f;
   }
-  static __device__ __forceinline__ Frag b_rows(const T* s, int ld, int n0, int k0, int lane) {
-    const T* p = s + (n0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3);
-    Frag f;
-    f.hi[0] = ld32(p);
-    f.hi[1] = ld32(p + 8);
-    return f;
+  // B[k][n] = s[(n0 + n) * ld + k0 + k] for the 8-wide tiles n0 (b0) and
+  // n0 + 8 (b1)
+  static __device__ __forceinline__ void b_rows2(const T* s, int ld, int n0, int k0, int lane,
+                                                 Frag& b0, Frag& b1, bool = true) {
+    const int i = lane >> 3;
+    uint32_t r[4];
+    ldsm_x4(r, s + (n0 + (lane & 7) + (i >> 1) * 8) * ld + k0 + (i & 1) * 8);
+    b0.hi[0] = r[0]; b0.hi[1] = r[1];
+    b1.hi[0] = r[2]; b1.hi[1] = r[3];
   }
-  static __device__ __forceinline__ Frag b_cols(const T* s, int ld, int k0, int n0, int lane) {
-    const T* p = s + (k0 + 2 * (lane & 3)) * ld + n0 + (lane >> 2);
-    Frag f;
-    f.hi[0] = pack_raw(p[0], p[ld]);
-    f.hi[1] = pack_raw(p[8 * ld], p[9 * ld]);
-    return f;
+  // B[k][n] = s[(k0 + k) * ld + n0 + n] for the tiles n0 (b0) and n0 + 8 (b1)
+  static __device__ __forceinline__ void b_cols2(const T* s, int ld, int k0, int n0, int lane,
+                                                 Frag& b0, Frag& b1, bool = true) {
+    const int i = lane >> 3;
+    uint32_t r[4];
+    ldsm_x4_t(r, s + (k0 + (lane & 7) + (i & 1) * 8) * ld + n0 + (i >> 1) * 8);
+    b0.hi[0] = r[0]; b0.hi[1] = r[1];
+    b1.hi[0] = r[2]; b1.hi[1] = r[3];
   }
   // A from the accumulator tiles c (depth 0..7) and c2 (depth 8..15),
   // rounded to bf16
@@ -290,7 +324,9 @@ template <> struct Mma<__nv_bfloat16> {
 };
 
 // Shared-memory row stride of a staged (L, Dh) plane of T: Dh padded to the
-// product depth, plus the padding that keeps fragment loads conflict-free.
+// product depth, plus 16 bytes, which keeps fragment loads conflict-free;
+// attention_plan.cuh's row_stride, by the element size, with the constants
+// folded in.
 template <typename T>
 __host__ __device__ inline int row_stride(int Dh) {
   return round_up(Dh, Mma<T>::kK) + Mma<T>::kPad;
@@ -309,6 +345,17 @@ __device__ __forceinline__ float quad_sum(float x) {
 // exp(x - m), 0 for x = -inf (no key there) whatever m is
 __device__ __forceinline__ float exp_sub(float x, float m) {
   return x == -INFINITY ? 0.f : expf(x - m);
+}
+
+// x / y rounded to nearest, as IEEE division rounds it, given r = 1 / y
+// rounded to nearest (__frcp_rn): q = x r, then Markstein's correction by
+// the exact residual x - q y.  Three instructions in place of the division's
+// dozen and its branch; equal to x / y for every normal quotient (a
+// softmax's: x = exp(S - m) in [0, 1], y its sum in [1, 128]), within a
+// denormal's last bit below 2^-126.
+__device__ __forceinline__ float div_rn(float x, float y, float r) {
+  const float q = __fmul_rn(x, r);
+  return __fmaf_rn(__fmaf_rn(-q, y, x), r, q);
 }
 
 // The key mask of row n as bits in mw (kMaxL / 32 words): bit j set where

@@ -17,25 +17,32 @@
 // against (2 * Lk + 2 * Lq) * Dh values moved.
 //
 //  - attn_fwd_mma (Lq > 1: encoder self-attention, both causal decoder
-//    attentions of the teacher-forced passes).  At Lq = Lk = 101, Dh = 32 a
-//    row is 25 flops a byte in f32: operations bound it, and the tensor
-//    cores are the only unit fast enough (3xTF32: 495 / 3 TFLOP/s against 67
-//    outside them).  A block owns row n and up to 128 query rows, a warp for
-//    each 16 (the M of mma.sync): 7 warps at Lq = 101, so K and V are read
-//    once a row.  Q, K and V are staged into shared memory with cp.async, 16
-//    bytes a thread.  S = Q K^T and O = P V are mma.sync products
-//    (attention_common.cuh) in a loop over 32-key chunks: the softmax runs
-//    on the accumulator fragments in registers (row max and sum across a
-//    quad of lanes, the key mask as bits, no branches), online in f32 (FA2:
-//    one pass, P V of exp(S - m) rescaled as the max grows, one reciprocal a
-//    row at the end); in bf16 a first pass finds the max and sum and a
-//    second recomputes S, so that P is normalised and rounded before P V.  P
-//    is reused from registers as the A operand.  Under causal, key chunks
-//    above the diagonal are neither staged nor multiplied; that is exact
-//    while the row has a visible valid key (exp(-1e9 - m) is exactly 0 in
-//    f32); a row with none averages V over all Lk keys, read from device
-//    memory on that rare path.  What holds it at ~6x its bound (PERF.md):
-//    per-block latency, with ~14 warps an SM at these shapes to hide it.
+//    attentions of the teacher-forced passes; and Lq = 1 when the row
+//    statistics are asked for).  At Lq = Lk = 101, Dh = 32 a row is 25
+//    flops a byte in f32 (50 in bf16): operations bound it on paper, on the
+//    tensor cores (3xTF32 in f32: 495 / 3 TFLOP/s), and in practice a CTA's
+//    latency and instruction count do.  A CTA owns a (row n, query tile):
+//    the launch plan (attention_plan.cuh) takes the largest tile, up to 128
+//    rows (one CTA a row), whose grid still gives every SM a CTA, and down
+//    to 16 rows where N is small (the rollout's 16 rows give 112 CTAs).  A
+//    warp owns 16 query rows (the M of mma.sync).  Q and K are staged into
+//    shared memory with cp.async in one group and V in a second, which lands
+//    while S and the softmax run.  A warp computes S = Q K^T against every
+//    key its rows see once and keeps it in registers (64 f32 a lane at 128
+//    keys); the row max and sum come from those registers (across a quad of
+//    lanes; the key mask as bits, no branches), then P = exp(S - m) / l
+//    (bf16: normalised, then rounded as the XLA path rounds it) is the A
+//    operand of O = P V straight from registers (f32: exp(S - m), and one
+//    reciprocal a row at the end).  bf16 fragments come by ldmatrix (V's by
+//    .trans), f32 ones by 32-bit loads split for 3xTF32.  Under causal, key
+//    pairs above a warp's diagonal are neither staged nor multiplied; that
+//    is exact while the row has a visible valid key (exp(-1e9 - m) is
+//    exactly 0 in f32); a row with none averages V over all Lk keys, read
+//    from device memory on that rare path.  Asked for (a forward whose
+//    gradient will be taken), it writes each row's max and sum, which the
+//    backward reads instead of searching for them.  mma.sync, not wgmma: a
+//    wgmma tile is 64 rows, so Lq = 101 would take two warpgroups with 27
+//    rows idle, and the work a row is too small for its asynchrony to pay.
 //  - attn_fwd_decode (Lq = 1: every cached-decode step).  About 1 flop a
 //    byte: bytes and latency bound it.  The keys of a row are split over the
 //    CTAs of a cluster (1 or 4, so that small batches still spread over
@@ -49,7 +56,7 @@
 //    times V, merged the same way.
 //
 // Limits: Lk <= kMaxL, Dh <= kMaxDh, any Lq (shared memory for every such
-// shape fits the card's opt-in maximum).  The launcher returns the launch's
+// shape fits the card's opt-in maximum: attention_plan.cuh).  The launcher returns the launch's
 // cudaError_t; it neither allocates nor synchronises.
 
 #include <cooperative_groups.h>
@@ -62,129 +69,175 @@ using namespace attn;
 namespace cg = cooperative_groups;
 
 constexpr int kWarps = 4;                    // attn_fwd_decode
-constexpr int kRowsPerBlock = kMaxL;         // query rows a block of attn_fwd_mma owns, 16 a warp
-constexpr int kMmaWarps = kRowsPerBlock / 16;
 
 struct FwdParams {
   Operand q, k, v, out;
   const unsigned char* mask;
+  float* stats;           // (2, N, Lq): row max, then row sum; nullptr: not written
+  long long nlq;          // N * Lq
   int Lq, Lk, Dh, H, causal, mask_mode, vec;
+  int rows;               // query rows a CTA of attn_fwd_mma owns (attention_plan.cuh)
   float scale;
 };
 
-template <typename T>
-__host__ __device__ inline size_t mma_smem_bytes(int Lq, int Lk, int Dh) {
-  const int q_rows = round_up(Lq < kRowsPerBlock ? Lq : kRowsPerBlock, 16);
-  return sizeof(T) * (size_t)(q_rows + 2 * round_up(Lk, 8 * kNT)) * row_stride<T>(Dh);
-}
-
-// DT: 8-wide head-dim tiles of the output a thread accumulates (Dh <= 8 DT).
-template <typename T, int DT>
-__global__ void __launch_bounds__(kMmaWarps * kWarp)
+// DT: 8-wide head-dim tiles of the output a thread accumulates (Dh <= 8 DT,
+// DT even); NP: 16-key pairs a row may have (Lk <= 16 NP), which sizes the
+// scores' registers (SMAC's 8-27 agents take 16 a lane, not 64); kPlain:
+// no mask and no causal tril (the encoder's self-attention), where a key is
+// live iff it is one of the Lk.
+template <typename T, int DT, int NP, bool kPlain>
+__global__ void __launch_bounds__(attn_plan::kMaxFwdWarps * kWarp)
 attn_fwd_mma(const FwdParams p) {
   using M = Mma<T>;
-  constexpr int kT = M::kK / 8;   // accumulator tiles a product's depth spans
+  constexpr int kT = M::kK / 8;            // 8-key tiles a product's depth spans
+  constexpr bool kRoundP = sizeof(T) == 2;   // bf16: P is normalised and rounded before P.V
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ unsigned mw_s[kMaxL / kWarp];   // valid keys, as bits
 
   const int n = blockIdx.x;   // N on x, whose limit is 2^31 - 1 (y's is 65,535)
-  const int q0 = blockIdx.y * kRowsPerBlock;
-  const int rows = min(kRowsPerBlock, p.Lq - q0);
-  const int q_rows = round_up(p.Lq < kRowsPerBlock ? p.Lq : kRowsPerBlock, 16);
+  const int q0 = blockIdx.y * p.rows;
+  const int rows = min(p.rows, p.Lq - q0);
   const int kv_end = p.causal ? min(p.Lk, q0 + rows) : p.Lk;   // keys any row here sees
-  const int kv_pad = round_up(kv_end, 8 * kNT);   // whole chunks
+  const int kv_pad = round_up(kv_end, 16);                       // whole pairs
   const int dpad = round_up(p.Dh, M::kK);
   const int ld = row_stride<T>(p.Dh);
-  const int kv_rows = round_up(p.Lk, 8 * kNT);
   T* q_s = reinterpret_cast<T*>(smem_raw);
-  T* k_s = q_s + q_rows * ld;
-  T* v_s = k_s + kv_rows * ld;
+  T* k_s = q_s + p.rows * ld;
+  T* v_s = k_s + round_up(p.Lk, 16) * ld;
 
-  // Pad rows: Q's and K's only reach scores that are discarded or replaced
-  // by -inf (a select, so even NaN there is harmless); V's meet P = 0, and
-  // 0 x NaN is NaN, so they are zeroed.
+  // Two copy groups: Q and K, then V, which lands while S and the softmax
+  // run.  Pad rows: Q's and K's only reach scores that are discarded or
+  // replaced by a select (so even NaN there is harmless); V's meet P = 0,
+  // and 0 x NaN is NaN, so they are zeroed.
   stage<T>(q_s, ld, p.q, n, p.H, q0, rows, rows, p.Dh, dpad, p.vec);
   stage<T>(k_s, ld, p.k, n, p.H, 0, kv_end, kv_end, p.Dh, dpad, p.vec);
+  cp_async_commit();
   stage<T>(v_s, ld, p.v, n, p.H, 0, kv_end, kv_pad, p.Dh, dpad, p.vec);
   cp_async_commit();
   mask_words(mw_s, mask_row(p.mask, p.mask_mode, n, p.H, p.Lk), p.Lk);
-  cp_async_wait<0>();
+  cp_async_wait<1>();
   __syncthreads();
 
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const int t4 = lane & 3;
   const int r0 = warp * 16;               // this warp's first row in the block
-  if (r0 >= rows) return;
+  const bool active = r0 < rows;
   const int qi0 = q0 + r0 + (lane >> 2);  // the query rows of this thread's fragments: qi0, qi0 + 8
-  // 32-key chunks this warp multiplies: all staged ones, or up to its diagonal
-  const int nchunks = ((p.causal ? min(kv_pad, q0 + r0 + 16) : kv_pad) + 8 * kNT - 1) / (8 * kNT);
-  constexpr bool kRoundP = sizeof(T) == 2;   // bf16: P is normalised and rounded before P.V
-  const auto a_q = [&](int kc) { return M::a_rows(q_s, ld, r0, kc, lane, true); };
+  // 16-key pairs this warp multiplies: all staged ones, or up to its diagonal
+  const int np = ((p.causal ? min(kv_end, q0 + r0 + 16) : kv_end) + 15) / 16;
 
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+  // S = Q K^T of the warp's 16 rows against every key it sees, computed
+  // once and kept in registers (16 x 16 NP f32: 64 a lane at 128 keys).  Loops
+  // over pairs are unrolled, so that s stays in registers, and leave at
+  // the warp's last pair, so that short rows run only their own work.
+  float s[2 * NP][4];
+#pragma unroll
+  for (int u = 0; u < 2 * NP; ++u) s[u][0] = s[u][1] = s[u][2] = s[u][3] = 0.f;
+  if (active) {
+    for (int kc = 0; kc < dpad; kc += M::kK) {
+      const Frag a = M::a_tile(q_s, ld, r0, kc, lane);
+#pragma unroll
+      for (int pr = 0; pr < NP; ++pr) {
+        if (pr >= np) break;
+        Frag b0, b1;
+        M::b_rows2(k_s, ld, 16 * pr, kc, lane, b0, b1, true);
+        M::mma(s[2 * pr], a, b0);
+        M::mma(s[2 * pr + 1], a, b1);
+      }
+    }
+  }
+
+  // mask and scale (no branches: the key mask as bits; the product rounded
+  // on its own, never fused into exp's subtraction, so that the backward
+  // forms the same P from the same scores), then the row max and sum from
+  // the same registers
+  unsigned words[kMaxL / kWarp];
+#pragma unroll
+  for (int w = 0; w < kMaxL / kWarp; ++w) words[w] = mw_s[w];
+  bool any[2] = {false, false};
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int u = 0; u < 2 * NP; ++u) {
+    if (u / 2 >= np) break;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = 8 * u + 2 * t4 + (e & 1);
+      const bool lv = kPlain ? j < p.Lk
+                             : ((words[u / 4] >> (j & 31)) & 1u) &&
+                                   !(p.causal && j > qi0 + 8 * (e >> 1));
+      s[u][e] = lv ? __fmul_rn(s[u][e], p.scale) : (j < p.Lk ? kNegInf : -INFINITY);
+      any[e >> 1] |= lv;
+      m[e >> 1] = fmaxf(m[e >> 1], s[u][e]);
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) m[h] = quad_max(m[h]);
+#pragma unroll
+  for (int u = 0; u < 2 * NP; ++u) {
+    if (u / 2 >= np) break;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      // m >= -1e9 (key 0 is always multiplied), so a key past Lk (-inf)
+      // gives exp(-inf) = 0 without exp_sub's test
+      s[u][e] = expf(s[u][e] - m[e >> 1]);
+      l[e >> 1] += s[u][e];
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) l[h] = quad_sum(l[h]);
+  if constexpr (kRoundP) {
+    // P = exp(S - m) / l, divided as the plain version divides (a product
+    // by 1 / l rounds some P to another bf16:
+    // tests/test_torch_attention_bf16_design.py)
+    const float r[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
+#pragma unroll
+    for (int u = 0; u < 2 * NP; ++u) {
+      if (u / 2 >= np) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[u][e] = div_rn(s[u][e], l[e >> 1], r[e >> 1]);
+    }
+  }
+
+  // O = P V (f32: exp(S - m) V, scaled by 1 / l at the end), P from
+  // registers as the A operand (rounded to bf16 under bf16)
   float o[DT][4];
 #pragma unroll
   for (int d = 0; d < DT; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
-  unsigned live = 0;
-  float s[kNT][4];
-  // f32: one pass, online softmax (FA2), P.V of exp(S - m) rescaled as m
-  // grows, one reciprocal a row at the end.  bf16: this pass finds m and l
-  // only; the second recomputes S and multiplies the rounded P.
-  for (int c = 0; c < nchunks; ++c) {
-    live |= chunk_scores<T, false>(s, a_q, k_s, ld, c, kv_pad, dpad, qi0, p.Lk, p.causal, mw_s,
-                                   p.scale, lane);
-    online_softmax(s, m, l, alpha);
-    if constexpr (!kRoundP) {
+  cp_async_wait<0>();
+  __syncthreads();
+  if (active) {
 #pragma unroll
-      for (int d = 0; d < DT; ++d) {
-        o[d][0] *= alpha[0]; o[d][1] *= alpha[0];
-        o[d][2] *= alpha[1]; o[d][3] *= alpha[1];
-      }
+    for (int st = 0; st < 2 * NP / kT; ++st) {
+      if (st * kT / 2 >= np) break;
+      const Frag a = M::a_acc(s[st * kT], s[st * kT + kT - 1]);
 #pragma unroll
-      for (int u = 0; u < kNT / kT; ++u) {
-        const Frag a = M::a_acc(s[u * kT], s[u * kT + kT - 1]);
-#pragma unroll
-        for (int d = 0; d < DT; ++d) {
-          if (8 * d < dpad) {
-            M::mma(o[d], a, M::b_cols(v_s, ld, 8 * kNT * c + u * M::kK, 8 * d, lane));
-          }
+      for (int dp = 0; dp < DT / 2; ++dp) {
+        if (16 * dp < dpad) {
+          const bool two = 16 * dp + 8 < dpad;
+          Frag b0, b1;
+          M::b_cols2(v_s, ld, st * M::kK, 16 * dp, lane, b0, b1, two);
+          M::mma(o[2 * dp], a, b0);
+          if (two) M::mma(o[2 * dp + 1], a, b1);
         }
       }
     }
   }
-  l[0] = quad_sum(l[0]);
-  l[1] = quad_sum(l[1]);
-  if constexpr (kRoundP) {
-    for (int c = 0; c < nchunks; ++c) {
-      chunk_scores<T, false>(s, a_q, k_s, ld, c, kv_pad, dpad, qi0, p.Lk, p.causal, mw_s,
-                             p.scale, lane);
-#pragma unroll
-      for (int u = 0; u < kNT; ++u) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[u][e] = exp_sub(s[u][e], m[e >> 1]) / l[e >> 1];
-      }
-#pragma unroll
-      for (int u = 0; u < kNT / 2; ++u) {
-        const Frag a = M::a_acc(s[2 * u], s[2 * u + 1]);   // rounds P to bf16
-#pragma unroll
-        for (int d = 0; d < DT; ++d) {
-          if (8 * d < dpad) {
-            M::mma(o[d], a, M::b_cols(v_s, ld, 8 * kNT * c + 16 * u, 8 * d, lane));
-          }
-        }
-      }
-    }
-  }
+  if (!active) return;
 
   bool row_live[2];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    row_live[h] = quad_max((live & (kRowBits << (2 * h))) ? 1.f : 0.f) > 0.f;
-  }
+  for (int h = 0; h < 2; ++h) row_live[h] = quad_max(any[h] ? 1.f : 0.f) > 0.f;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int i = qi0 + 8 * h;
     if (i >= p.Lq) continue;
+    if (p.stats != nullptr && t4 == 0) {
+      // the plain softmax's max and sum over all Lk keys: a row with no
+      // visible valid key has every score at -1e9, so its sum is Lk
+      float* st = p.stats + (long long)n * p.Lq + i;
+      st[0] = m[h];
+      st[p.nlq] = row_live[h] ? l[h] : (float)p.Lk;
+    }
     T* orow = row_ptr<T>(p.out, n, p.H, i);
     if (row_live[h]) {
       const float inv = kRoundP ? 1.f : 1.f / l[h];
@@ -418,20 +471,47 @@ cudaError_t opt_in_smem(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <typename T, int DT>
-cudaError_t launch_mma(const FwdParams& p, int N, cudaStream_t stream) {
-  const size_t smem = mma_smem_bytes<T>(p.Lq, p.Lk, p.Dh);
-  const cudaError_t e = opt_in_smem(attn_fwd_mma<T, DT>, smem);
+template <typename T, int DT, int NP, bool kPlain>
+cudaError_t launch_mma(const FwdParams& p, int N, int sms, cudaStream_t stream) {
+  const attn_plan::FwdPlan plan = attn_plan::fwd_plan(N, p.Lq, p.Lk, p.Dh, (int)sizeof(T), sms);
+  const cudaError_t e = opt_in_smem(attn_fwd_mma<T, DT, NP, kPlain>, (size_t)plan.smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((unsigned)N, (unsigned)((p.Lq + kRowsPerBlock - 1) / kRowsPerBlock));
-  const int warps = (min(p.Lq, kRowsPerBlock) + 15) / 16;
-  attn_fwd_mma<T, DT><<<grid, warps * kWarp, smem, stream>>>(p);
+  FwdParams q = p;
+  q.rows = plan.rows;
+  attn_fwd_mma<T, DT, NP, kPlain><<<dim3((unsigned)N, (unsigned)plan.tiles), plan.warps * kWarp,
+                                    (size_t)plan.smem, stream>>>(q);
   return cudaGetLastError();
+}
+
+// the bf16 leg specialised for calls without a mask (the f32 one would take
+// more than 128 registers, and fit one CTA of 7 warps an SM, not two)
+template <typename T, int DT, int NP>
+cudaError_t launch_mma(const FwdParams& p, int N, int sms, cudaStream_t stream) {
+  if (sizeof(T) == 2 && !p.causal && p.mask_mode == 0) {
+    return launch_mma<T, DT, NP, sizeof(T) == 2>(p, N, sms, stream);
+  }
+  return launch_mma<T, DT, NP, false>(p, N, sms, stream);
+}
+
+template <typename T, int DT>
+cudaError_t launch_mma(const FwdParams& p, int N, int sms, cudaStream_t stream) {
+  if (p.Lk <= 32) return launch_mma<T, DT, 2>(p, N, sms, stream);
+  return launch_mma<T, DT, kMaxL / 16>(p, N, sms, stream);
+}
+
+// The SMs of the current device (the plan fills them), or 132 (an H100).
+int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+    return 132;
+  }
+  return sms;
 }
 
 template <typename T>
 cudaError_t launch(const FwdParams& p, int N, cudaStream_t stream) {
-  if (p.Lq == 1) {
+  if (p.Lq == 1 && p.stats == nullptr) {
     // CTAs a row: one from N = 128 up (256 rows at bucket 128), else a
     // cluster of 4, so that a small batch still covers more SMs than it has
     // rows (chip_smoke.py times N = 256, 64 and 16)
@@ -455,10 +535,11 @@ cudaError_t launch(const FwdParams& p, int N, cudaStream_t stream) {
     const cudaError_t e = cudaLaunchKernelEx(&cfg, attn_fwd_decode<T>, p, split);
     return e != cudaSuccess ? e : cudaGetLastError();
   }
+  static const int sms = sm_count();
   const int dpad = round_up(p.Dh, Mma<T>::kK);
-  if (dpad <= 32) return launch_mma<T, 4>(p, N, stream);
-  if (dpad <= 64) return launch_mma<T, 8>(p, N, stream);
-  return launch_mma<T, 16>(p, N, stream);
+  if (dpad <= 32) return launch_mma<T, 4>(p, N, sms, stream);
+  if (dpad <= 64) return launch_mma<T, 8>(p, N, sms, stream);
+  return launch_mma<T, 16>(p, N, sms, stream);
 }
 
 }  // namespace
@@ -468,8 +549,11 @@ cudaError_t launch(const FwdParams& p, int N, cudaStream_t stream) {
 // b, h and l (q, k, v, out: 12 values); Dh has unit stride.  One dtype for
 // all (0 = f32, 1 = bf16).  mask_mode: 0 none, 1 one shared (Lk,) row, 2 one
 // (Lk,) row per batch index n / H.  Mask bytes are 0 (masked) or not.
+// stats: nullptr, or a contiguous f32 (2, N, Lq) that receives each query
+// row's softmax max and sum (the backward's input; written only when a
+// gradient is needed).
 extern "C" cudaError_t mat_attention_fwd(const void* q, const void* k, const void* v,
-                                         const void* mask, void* out,
+                                         const void* mask, void* out, float* stats,
                                          const long long* strides, int N, int Lq, int Lk,
                                          int Dh, int H, int causal, int mask_mode, int dtype,
                                          void* stream) {
@@ -485,6 +569,9 @@ extern "C" cudaError_t mat_attention_fwd(const void* q, const void* k, const voi
   for (int i = 0; i < 4; ++i) *ops[i] = Operand{ptrs[i], strides[3 * i], strides[3 * i + 1],
                                                 strides[3 * i + 2]};
   p.mask = static_cast<const unsigned char*>(mask);
+  p.stats = stats;
+  p.nlq = (long long)N * Lq;
+  p.rows = 0;
   p.Lq = Lq; p.Lk = Lk; p.Dh = Dh; p.H = H; p.causal = causal; p.mask_mode = mask_mode;
   p.scale = 1.f / sqrtf((float)Dh);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -40,6 +40,13 @@ past a top-2 margin below ``BF16_NEAR_TIE``; the decode step's logits within
 of values of O(1)).
 A bf16 call launches the bf16 leg: it never reaches the plain twin, and a
 mixed-dtype or f16 call raises.
+
+The attention kernels' launch plan (query tiles of 16-128 rows, chosen by N)
+and the row statistics the bf16 forward saves for the backward: forward and
+backward through autograd at every query-tile edge and at N = 1, 2 and 16,
+the saved statistics against the plain softmax's max and sum (relative
+``STATS_TOL``), and the backward fed them equal bit for bit to the backward
+finding them itself.
 """
 
 import dataclasses
@@ -339,6 +346,116 @@ def test_backward_takes_an_expanded_gradient(cuda):
 
 
 # ------------------------------------------------------------- whole decode
+
+# ---------------------------------- query tiles, small N, row statistics
+
+# around the forward's query tiles (16 rows a warp, CTAs of 1-8 warps) and the
+# 128 limit
+TILE_EDGES = [1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 101, 128]
+STATS_TOL = 1e-5   # the row statistics vs plain, relative to max(1, |plain|)
+
+
+def _through_autograd(q, k, v, do, causal, m):
+    """Forward and gradients through FusedAttention (in bf16 the forward
+    writes the row statistics and the backward reads them), one launch of
+    each kernel, against the plain version through autograd."""
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    fwd, bwd = cuda_attention.launches, cuda_attention.bwd_launches
+    out = cuda_attention.fused_masked_attention(*leaves, causal=causal, kv_mask=m)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (cuda_attention.launches, cuda_attention.bwd_launches) == (fwd + 1, bwd + 1)
+    refs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    ref = cuda_attention.attention_plain(*refs, causal=causal, kv_mask=m)
+    ref.backward(do)
+    scale = max(1.0, ref.float().abs().max().item())
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= TOL[q.dtype] * scale, f"forward: {err} > {TOL[q.dtype]} * {scale}"
+    for name, a, b in zip("qkv", leaves, refs):
+        scale = max(1.0, b.grad.float().abs().max().item())
+        err = (a.grad.float() - b.grad.float()).abs().max().item()
+        assert err <= BWD_TOL[q.dtype] * scale, f"d{name}: {err} > {BWD_TOL[q.dtype]} * {scale}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [False, True], ids=["keys", "causal"])
+@pytest.mark.parametrize("B", [1, 20, 128])   # N 2, 40, 256: CTAs of 1, 2, up to 8 warps
+@pytest.mark.parametrize("L", TILE_EDGES)
+def test_kernels_at_query_tile_edges(cuda, dtype, L, B, causal):
+    q, k, v, do, m = _edge_inputs(cuda, B, L, L, 32, dtype, seed=L * 17 + B)
+    _through_autograd(q, k, v, do, causal, m)
+    _fwd_agrees_scaled(q, k, v, causal, m)   # no gradient: no statistics
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [False, True], ids=["keys", "causal"])
+@pytest.mark.parametrize("B,H", [(1, 1), (1, 2), (8, 2)], ids=["N1", "N2", "N16"])
+def test_kernels_at_small_n(cuda, dtype, B, H, causal):
+    """N = B * H of 1, 2 and 16 rows at L = 101: every query tile a CTA of
+    its own (the rollout's N = 16 gives 112)."""
+    g = torch.Generator(device=cuda).manual_seed(B * 10 + H)
+    q, k, v, do = (torch.randn(B, H, 101, 32, generator=g, device=cuda).to(dtype)
+                   for _ in range(4))
+    m = torch.rand(B, 101, generator=g, device=cuda) > 0.3
+    _fwd_agrees(q, k, v, causal, m)
+    _through_autograd(q, k, v, do, causal, m)
+    _bwd_agrees(q, k, v, do, causal, None)
+
+
+@pytest.mark.parametrize("mask", [None, "per_batch", "no_visible_key"])
+@pytest.mark.parametrize("causal", [False, True], ids=["keys", "causal"])
+def test_backward_reads_the_forward_statistics(cuda, monkeypatch, causal, mask):
+    """After a real FusedAttention forward in bf16, the backward gets the
+    forward's row statistics (the plain softmax's max and sum), and gives
+    bit for bit what it gives finding them itself: the same scores and the
+    same arithmetic on both sides."""
+    q, k, v, do, m = _edge_inputs(cuda, 5, 101, 101, 32, torch.bfloat16, seed=21 + causal)
+    m = {None: None, "per_batch": m, "no_visible_key": _no_visible_key_mask(cuda, 5, 101)}[mask]
+    seen = {}
+    real = cuda_attention.attention_bwd
+
+    def spy(*args, **kwargs):
+        seen["stats"] = kwargs["stats"]
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(cuda_attention, "attention_bwd", spy)
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    cuda_attention.fused_masked_attention(*leaves, causal=causal, kv_mask=m).backward(do)
+    torch.cuda.synchronize()
+    stats = seen["stats"]
+    assert stats is not None and stats.shape == (2, 10, 101) and stats.dtype == torch.float32
+    ref = cuda_attention.attention_stats_plain(q, k, causal=causal, kv_mask=m)
+    assert ((stats - ref).abs() / ref.abs().clamp(min=1.0)).max().item() <= STATS_TOL
+    alone = real(q, k, v, do, causal=causal, kv_mask=m)
+    torch.cuda.synchronize()
+    for name, x, y in zip("qkv", leaves, alone):
+        assert torch.equal(x.grad, y), f"d{name}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_forward_writes_statistics_only_for_a_gradient(cuda, monkeypatch, dtype):
+    """Under no_grad (the rollout, serving, the Lq = 1 decode) or without an
+    input that needs a gradient, no statistics are allocated or written;
+    with a gradient to take, the bf16 forward writes them (the f32 backward
+    finds its own)."""
+    seen = []
+    real = cuda_attention.attention_fwd
+
+    def spy(*args, **kwargs):
+        seen.append(kwargs.get("stats"))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(cuda_attention, "attention_fwd", spy)
+    q, k, v, _, m = _edge_inputs(cuda, 4, 101, 101, 32, dtype, seed=7)
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    with torch.no_grad():
+        cuda_attention.fused_masked_attention(*leaves, causal=True, kv_mask=m)
+        cuda_attention.fused_masked_attention(leaves[0][:, :, :1], *leaves[1:], kv_mask=m)
+    cuda_attention.fused_masked_attention(q, k, v, kv_mask=m)
+    assert seen == [None, None, None]
+    cuda_attention.fused_masked_attention(*leaves, causal=True, kv_mask=m)
+    assert (seen[-1] is not None) == (dtype == torch.bfloat16)
+
 
 DCML = MATConfig(n_agent=101, obs_dim=7, state_dim=102, action_dim=2, n_block=2, n_embd=64,
                  n_head=2, action_type=SEMI_DISCRETE, semi_index=-1)
@@ -808,6 +925,23 @@ def test_bf16_calls_never_reach_the_plain_twins(cuda, monkeypatch):
 
     monkeypatch.setattr(ard, "ar_decode_plain", refuse)
     monkeypatch.setattr(dst, "decode_step_plain", refuse)
+    for name in ("attention_plain", "attention_bwd_plain", "attention_stats_plain"):
+        monkeypatch.setattr(cuda_attention, name, refuse)
+    # both attention kernels: the forward (with statistics, then without),
+    # the backward fed them, and the cached decode's Lq = 1 forward
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v = (torch.randn(8, 2, 101, 32, generator=g, device=cuda, dtype=torch.bfloat16,
+                           requires_grad=True) for _ in range(3))
+    counts = (cuda_attention.launches, cuda_attention.bwd_launches)
+    out = cuda_attention.fused_masked_attention(q, k, v, causal=True)
+    out.float().square().sum().backward()
+    with torch.no_grad():
+        step = cuda_attention.fused_masked_attention(q[:, :, :1], k, v,
+                                                     kv_mask=torch.arange(101, device=cuda) < 50)
+    torch.cuda.synchronize()
+    assert (cuda_attention.launches - counts[0], cuda_attention.bwd_launches - counts[1]) == (2, 1)
+    assert out.dtype == step.dtype == q.grad.dtype == torch.bfloat16
+    assert all(torch.isfinite(x.grad.float()).all() for x in (q, k, v))
     weights = ard.pack_ar_decode_weights(_dcml_model(cuda, cfg=BF16))
     assert weights.block_qkvp1_w.dtype == torch.bfloat16
     assert weights.head_w1.dtype == torch.float32
