@@ -114,11 +114,31 @@ Phases, each printed on its own line and each fatal on failure:
    the held-out 2m evaluated; (g) the learning check of
    tests/test_smac.py::test_mat_improves_win_rate_on_2m (2m, E 32, T 40,
    n_embd 32, 1 block, 5 epochs, lr 5e-4, entropy 0.01, 30 iterations): the
-   evaluated win rate after at least before and above 0.3.
+   evaluated win rate after at least before and above 0.3;
+12. the actor-critic family on DCML (feed-forward MLPs, no hand-written
+   kernel) at the recipe (DCMLRunner defaults: E = 8, T = 50, 15 x 4
+   minibatches, hidden 64, f32; 101 agents): (a) one iteration each of
+   ``ppo`` (the joint view, one policy), ``mappo`` (one shared policy),
+   ``ippo``, ``happo`` and ``hatrpo`` (one policy an agent; each HAPPO /
+   HATRPO agent turn one CUDA graph replay), with finite records and the
+   four kernels' launch counters reading 0 (``happo`` trains two episodes,
+   the uninterrupted run of (b)), and one more update of ``ppo``, ``happo``
+   and ``hatrpo`` at the recipe matched against the CPU port: ``ppo``'s
+   whole update, weights within 0.01 lr x Adam steps and metrics rtol 1e-5
+   or within 4x the update's own spread under a 1e-7 perturbation;
+   ``happo``'s and ``hatrpo``'s turn by turn from the card's state, the
+   median turn held so against the median turn's spread (HATRPO: the line
+   search's acceptance equal in every turn), the first three turns also
+   run eagerly on the card and equal to the captured graph's replay bit
+   for bit (the constants' comment says why); (b) a ``happo`` run stopped by SIGTERM
+   after its first episode and resumed, equal to (a)'s uninterrupted run
+   (held as phase 9 (b)); (c) DCMLRunner.evaluate for 100 steps for ``ppo``
+   and ``happo``.  Its times print beside the card's name and power limit.
 
 The bf16 legs' readings are a JSON line ``{"bf16_legs": {...}}``, phase 9's
 ``{"checkpoint_phase": {...}}``, phase 10's ``{"mat_family_phase": {...}}``,
-phase 11's ``{"smac_phase": {...}}``;
+phase 11's ``{"smac_phase": {...}}``, phase 12's
+``{"actor_critic_phase": {...}}``;
 the last
 two lines of standard output are a JSON object describing each kernel and
 the result line ``{"ok": true, "device": {...}}``.  Without a
@@ -244,6 +264,38 @@ LEARN_ITERS = 30
 # runs differ from each other
 RESUME_EPISODES = 3
 EVAL_STEPS = 100
+# the actor-critic family (phase 12): the recipe's width, iteration and
+# update (15 epochs x 4 minibatches).  The card's update is matched against
+# the CPU port's from copies of its state: weights within 0.01 lr x Adam
+# steps (as phase 5); metrics rtol 1e-5 (update_ratio 1e-2, a quotient of
+# steps each side rounds to its weights' ulp, as phase 5), or, where the
+# update amplifies rounding past that (Adam's normalised steps and the
+# clipped losses' kinks over 60 steps), within AC_SPREAD_FACTOR times how
+# far the same update on the card moves from a AC_PERTURBATION relative
+# perturbation of its weights: the update's own spread.  HAPPO's and
+# HATRPO's factor compounds over the 101 agents (HATRPO's reaches 1e13, as
+# in JAX: tests/hatrpo_factor_probe.py), so they are matched turn by turn,
+# each turn from the card's state and with the card's factor and targets,
+# and the 101 turns are held by their median: the median turn's deviation
+# within those bounds (HATRPO's actor, which takes no Adam step, rtol 1e-4
+# of its step), against the median turn's spread (the larger of
+# AC_SPREAD_SAMPLES perturbations).  A port fault moves every turn; one
+# turn alone can part further, as this check measured on an H100 (a
+# HAPPO turn's actor by 2.5 lr, its factor by 3.6e-5 relative): an Adam
+# entry whose near-0 gradient changes sign with the rounding moves by up to
+# 2 lr a step, and a perturbation of the starting weights need not flip the
+# same entries.  Each turn's largest deviation is printed; HATRPO's
+# line-search acceptance is equal in every turn, its critic (4 Adam steps)
+# within the bound in every turn.  The first AC_EAGER_TURNS turns also run
+# eagerly on the card and equal the captured graph's replay bit for bit.
+AC_ALGOS = ("ppo", "mappo", "ippo", "happo", "hatrpo")
+AC_MATCHED = ("ppo", "happo", "hatrpo")
+AC_EVALUATED = ("ppo", "happo")
+AC_METRIC_RTOL = 1e-5
+AC_PERTURBATION = 1e-7
+AC_SPREAD_FACTOR = 4.0
+AC_SPREAD_SAMPLES = 2
+AC_EAGER_TURNS = 3
 EVAL_STRIDE = 10
 SWEEP_SETTINGS = 2
 SWEEP_STEPS = 100
@@ -2854,6 +2906,456 @@ def _teacher_scores(torch, cfg, params, state, obs, avail, act):
     return np.where(np.asarray(avail) == 0, -1e10, logits.numpy())
 
 
+def _trainer_like(trainer, policy):
+    """A fresh trainer of ``trainer``'s kind and config on ``policy``."""
+    if hasattr(trainer, "n_agents"):
+        return type(trainer)(policy, trainer.cfg, trainer.n_agents)
+    return type(trainer)(policy, trainer.cfg)
+
+
+def _cpu_twin(torch, runner, train_state):
+    """The runner's policy and training state copied to the CPU."""
+    from mat_dcml_tpu_torch.models.actor_critic import ActorCriticPolicy
+    from mat_dcml_tpu_torch.training.mappo import MAPPOTrainState
+
+    pol = runner.policy
+    cpu_pol = ActorCriticPolicy(pol.cfg, pol.obs_dim, pol.cent_obs_dim, pol.space,
+                                n_objective=pol.critic.n_objective, n_stack=pol.n_stack,
+                                device="cpu")
+    cpu_pol.actor_flat.copy_(pol.actor_flat.cpu())
+    cpu_pol.critic_flat.copy_(pol.critic_flat.cpu())
+
+    def host(tree):     # copies, also of CPU tensors
+        return type(tree)(*(x.cpu().clone() for x in tree))
+
+    return cpu_pol, MAPPOTrainState(host(train_state.actor_opt), host(train_state.critic_opt),
+                                    host(train_state.value_norm), train_state.update_step)
+
+
+def _cpu_traj(torch, traj):
+    return traj._replace(chunk_stats={}, **{k: v.cpu() for k, v in traj._asdict().items()
+                                             if isinstance(v, torch.Tensor)})
+
+
+def _perturb(torch, flat, noise):
+    """``flat`` times ``1 + AC_PERTURBATION x`` standard normal draws."""
+    eps = torch.randn(flat.shape, generator=noise).to(flat.device)
+    return flat * (1 + AC_PERTURBATION * eps)
+
+
+def _spread_bound(dev, spread, floor):
+    """Whether ``dev`` is within ``floor`` or AC_SPREAD_FACTOR x ``spread``."""
+    return dev <= max(floor, AC_SPREAD_FACTOR * spread)
+
+
+def _match_cpu_ac_update(torch, runner, train_state, rollout_state, tag):
+    """One more collect on the card, then the recipe's update on the card,
+    on the card again from weights perturbed by AC_PERTURBATION (the
+    update's own spread), and by the port on the CPU from copies of the
+    trajectory, weights, both Adam states, the ValueNorm and the drawn
+    orders.  Returns the readings."""
+    import math
+
+    from mat_dcml_tpu_torch.training.mappo import bootstrap_input
+
+    pol, gen, trainer = runner.policy, runner.generator, runner.trainer
+    rollout_state, traj = runner.collector.collect(rollout_state, generator=gen)
+    boot = bootstrap_input(runner.collector, rollout_state)
+    perms = trainer.draw_permutations(trainer.to_rows(traj.rewards).shape[1], gen)
+    cpu_pol, cpu_state = _cpu_twin(torch, runner, train_state)
+    cpu_trainer = _trainer_like(trainer, cpu_pol)
+    noise = torch.Generator().manual_seed(SEED)
+    pert_pol, pert_state = copy.deepcopy(pol), copy.deepcopy(train_state)
+    with torch.no_grad():
+        for flat in (pert_pol.actor_flat, pert_pol.critic_flat):
+            flat.copy_(_perturb(torch, flat, noise))
+    _, pmet = _trainer_like(trainer, pert_pol).train(pert_state, traj, boot, perms=perms)
+    before = (pol.actor_flat.cpu().clone(), pol.critic_flat.cpu().clone())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_state, met = trainer.train(train_state, traj, boot, perms=perms)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_state, cmet = cpu_trainer.train(cpu_state, _cpu_traj(torch, traj), _to_cpu(boot),
+                                        perms=perms.cpu())
+    cpu_s = time.perf_counter() - t0
+
+    cfg = trainer.cfg
+    steps = cfg.ppo_epoch * cfg.num_mini_batch
+    tol = UPDATE_TOL_FRACTION * cfg.lr * steps
+    faults, diffs, moved = [], {}, 0.0
+    for name, mine, ref, old in (("actor", pol.actor_flat, cpu_pol.actor_flat, before[0]),
+                                 ("critic", pol.critic_flat, cpu_pol.critic_flat, before[1])):
+        mine = mine.cpu()
+        moved = max(moved, float((mine - old).abs().max()))
+        diffs[name] = float((mine - ref).abs().max())
+        if not diffs[name] <= tol:
+            faults.append(f"{name} weights differ by {diffs[name]:.3g} > {tol:.3g}")
+    if not moved > tol:
+        faults.append(f"the update moved the weights by only {moved:.3g}")
+    dev, spread = {}, {}
+    for name in met._fields:
+        a = float(getattr(met, name))
+        b, p = float(getattr(cmet, name)), float(getattr(pmet, name))
+        rtol = 1e-2 if name == "update_ratio" else AC_METRIC_RTOL
+        dev[name], spread[name] = abs(a - b), abs(p - a)
+        if not (math.isfinite(a) and _spread_bound(dev[name], spread[name],
+                                                   1e-6 + rtol * abs(b))):
+            faults.append(f"metric {name}: card {a:.9g} vs CPU {b:.9g}, beyond rtol {rtol} and "
+                          f"{AC_SPREAD_FACTOR} x the card's spread {spread[name]:.3g}")
+    say(f"{tag} one more update ({cfg.ppo_epoch} epochs x {cfg.num_mini_batch} minibatches) "
+        f"card vs CPU port: max|weight diff| actor {diffs['actor']:.3g}, critic "
+        f"{diffs['critic']:.3g} (tol {UPDATE_TOL_FRACTION} x lr x {steps} steps = {tol:.3g}); "
+        f"moved up to {moved:.3g}; metrics |card - CPU| (the card's spread from a "
+        f"{AC_PERTURBATION:g} perturbation): "
+        + ", ".join(f"{k} {dev[k]:.3g} ({spread[k]:.3g})" for k in dev)
+        + f"; card {card_s:.2f}s, CPU {cpu_s:.2f}s")
+    if faults:
+        raise AssertionError(f"{tag}: the card's update differs from the CPU port's: "
+                             + "; ".join(faults))
+    return {"update": [cfg.ppo_epoch, cfg.num_mini_batch], "weight_diff": diffs, "moved": moved,
+            "metric_diff": dev, "metric_spread": spread, "card_update_s": card_s,
+            "cpu_update_s": cpu_s}
+
+
+class _EagerTurns:
+    """Within it, a HAPPO / HATRPO turn on the card runs eagerly, not as its
+    captured graph's replay."""
+
+    def __enter__(self):
+        from mat_dcml_tpu_torch.training import graphs
+
+        self.cls, self.replay = graphs.CapturedCall, graphs.CapturedCall.__call__
+        self.cls.__call__ = lambda call, *args: call.fn(*args)
+
+    def __exit__(self, *exc):
+        self.cls.__call__ = self.replay
+
+
+def _match_cpu_turns(torch, runner, train_state, rollout_state, tag):
+    """One more update of HAPPO or HATRPO at the recipe, turn by turn.
+    Before each agent's turn its state on the card (weights, both Adam
+    states, ValueNorm) is kept; the turn runs on the card AC_SPREAD_SAMPLES
+    times from that state perturbed by AC_PERTURBATION (the turn's own
+    spread), then from the state itself, and by the CPU port from a copy of
+    it, with the card's factor and targets.  The first AC_EAGER_TURNS turns
+    also run eagerly on the card from the same state, which must equal the
+    captured graph's replay bit for bit.  Returns the readings."""
+    import math
+
+    import numpy as np
+
+    from mat_dcml_tpu_torch.training.happo import HATRPOTrainer
+    from mat_dcml_tpu_torch.training.mappo import bootstrap_input
+
+    pol, gen, trainer = runner.policy, runner.generator, runner.trainer
+    trpo = isinstance(trainer, HATRPOTrainer)
+    rollout_state, traj = runner.collector.collect(rollout_state, generator=gen)
+    boot = bootstrap_input(runner.collector, rollout_state)
+    T, E = traj.rewards.shape[:2]
+    order = trainer.draw_order(gen)
+    perms = trainer.draw_permutations(T * E, gen)
+    cpu_pol, cpu_state = _cpu_twin(torch, runner, train_state)
+    cpu_trainer = _trainer_like(trainer, cpu_pol)
+    data = trainer.prepare(train_state, traj, boot)
+    cpu_data = cpu_trainer.prepare(cpu_state, _cpu_traj(torch, traj), _to_cpu(boot))
+    target_diff = max(float((data[k].cpu() - cpu_data[k]).abs().max()) for k in ("adv",
+                                                                                 "returns"))
+    cpu_data = {k: v.cpu() for k, v in data.items()}     # the card's targets from here on
+    noise = torch.Generator().manual_seed(SEED)
+    cfg = trainer.cfg
+    steps = cfg.num_mini_batch * (1 if trpo else cfg.ppo_epoch)     # Adam steps a turn
+    tol = UPDATE_TOL_FRACTION * cfg.lr * steps
+
+    def card_rows():
+        return [pol.actor_flat, pol.critic_flat, *train_state.actor_opt,
+                *train_state.critic_opt, *train_state.value_norm]
+
+    def cpu_rows():
+        return [cpu_pol.actor_flat, cpu_pol.critic_flat, *cpu_state.actor_opt,
+                *cpu_state.critic_opt, *cpu_state.value_norm]
+
+    def put(rows, i, vals):
+        with torch.no_grad():
+            for x, v in zip(rows, vals):
+                x[i] = v.to(x.device)
+
+    factor = torch.ones(1, T * E, 1, device=pol.device)
+    turns, faults, eager_equal = [], [], []
+    t_card = t_cpu = 0.0
+    for j, i in enumerate(order.tolist()):
+        perm = perms[j:j + 1]
+        kept = [x[i].clone() for x in card_rows()]
+        if j < AC_EAGER_TURNS:
+            with _EagerTurns():
+                f_eager, m_eager = trainer.turn(train_state, data, i, factor, perm)
+            eager = [x[i].clone() for x in card_rows()]
+            put(card_rows(), i, kept)
+        spread = []
+        for _ in range(AC_SPREAD_SAMPLES):
+            put(card_rows(), i, [_perturb(torch, kept[0], noise), _perturb(torch, kept[1], noise),
+                                 *kept[2:]])
+            f_p, m_p = trainer.turn(train_state, data, i, factor, perm)
+            spread.append((pol.actor_flat[i].to("cpu", copy=True),
+                           pol.critic_flat[i].to("cpu", copy=True), f_p.cpu(),
+                           {k: float(v) for k, v in m_p.items()}))
+        put(card_rows(), i, kept)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f_in = factor
+        factor, m = trainer.turn(train_state, data, i, factor, perm)
+        torch.cuda.synchronize()
+        t_card += time.perf_counter() - t0
+        if j < AC_EAGER_TURNS:
+            eager_equal.append(torch.equal(factor, f_eager)
+                               and all(torch.equal(m[k], m_eager[k]) for k in m)
+                               and all(torch.equal(x[i], y) for x, y in zip(card_rows(), eager)))
+        put(cpu_rows(), i, kept)
+        t0 = time.perf_counter()
+        f_cpu, m_cpu = cpu_trainer.turn(cpu_state, cpu_data, i, f_in.cpu(), perm.cpu())
+        t_cpu += time.perf_counter() - t0
+
+        a0 = kept[0].cpu()
+        a_card, c_card, f_card = pol.actor_flat[i].cpu(), pol.critic_flat[i].cpu(), factor.cpu()
+        step = max(float((cpu_pol.actor_flat[i] - a0).abs().max()), 1e-12)
+        rel_f = lambda f: float(((f - f_cpu).abs() / f_cpu.abs()).max())     # noqa: E731
+        row = {"agent": i,
+               "actor": float((a_card - cpu_pol.actor_flat[i]).abs().max()),
+               "critic": float((c_card - cpu_pol.critic_flat[i]).abs().max()),
+               "factor": rel_f(f_card),
+               "step": step,
+               "actor_spread": max(float((a - a_card).abs().max()) for a, _, _, _ in spread),
+               "critic_spread": max(float((c - c_card).abs().max()) for _, c, _, _ in spread),
+               "factor_spread": max(float(((f - f_card).abs() / f_card.abs()).max())
+                                    for _, _, f, _ in spread),
+               "accepted_equal": float(m["accepted"]) == float(m_cpu["accepted"])}
+        for k in m:
+            a, b = float(m[k]), float(m_cpu[k])
+            row[f"m_{k}_card"], row[f"m_{k}_cpu"] = a, b
+            row[f"m_{k}"] = abs(a - b)
+            row[f"m_{k}_spread"] = max(abs(p[3][k] - a) for p in spread)
+            rtol = {"kl": 1e-4, "update_ratio": 1e-2}.get(k, AC_METRIC_RTOL)
+            row[f"m_{k}_floor"] = 1e-6 + rtol * abs(b)
+        turns.append(row)
+
+    def worst(k):
+        r = max(turns, key=lambda r: r[k])
+        return f"{r[k]:.3g} (its spread {r.get(k + '_spread', 0.0):.3g})"
+
+    ratio = lambda k: [r[k] / max(r[k + "_spread"], 1e-30) for r in turns]   # noqa: E731
+    keys = ["actor", "critic", "factor"] + [f"m_{k}" for k in m]
+    summary = {k: {"largest": max(r[k] for r in turns),
+                   "median": float(np.median([r[k] for r in turns])),
+                   "spread_median": float(np.median([r[k + "_spread"] for r in turns])),
+                   "beyond_spread": sum(x > 1 for x in ratio(k))} for k in keys}
+    # the turns held by their median (a port fault moves every turn; one
+    # turn alone can part further: constants' comment)
+    def med(k):
+        return float(np.median([r[k] for r in turns]))
+
+    def beyond(k, floor):
+        return not _spread_bound(med(k), med(k + "_spread"), floor)
+
+    if not all(r["accepted_equal"] for r in turns):
+        faults.append(f"the line search's acceptance differs in "
+                      f"{sum(not r['accepted_equal'] for r in turns)} turns")
+    if trpo:
+        if not all(r["critic"] <= tol for r in turns):
+            faults.append(f"critic weights differ by {max(r['critic'] for r in turns):.3g} > "
+                          f"{tol:.3g}")
+        if beyond("actor", 1e-4 * med("step")):
+            faults.append(f"actor: median turn {med('actor'):.3g} (median step "
+                          f"{med('step'):.3g}, spread {med('actor_spread'):.3g})")
+    else:
+        for k in ("actor", "critic"):
+            if not med(k) <= tol:
+                faults.append(f"{k} weights: median turn {med(k):.3g} > {tol:.3g}")
+    if beyond("factor", AC_METRIC_RTOL):
+        faults.append(f"factor: median turn {med('factor'):.3g} relative (spread "
+                      f"{med('factor_spread'):.3g})")
+    for k in m:
+        if not all(math.isfinite(r[f"m_{k}_card"]) for r in turns):
+            faults.append(f"metric {k} not finite")
+        if beyond(f"m_{k}", med(f"m_{k}_floor")):
+            faults.append(f"metric {k}: median turn {med(f'm_{k}'):.3g} (spread "
+                          f"{med(f'm_{k}_spread'):.3g}, floor {med(f'm_{k}_floor'):.3g})")
+    if not all(eager_equal):
+        faults.append(f"the captured turns differ from the eager ones: {eager_equal}")
+    say(f"{tag} one more update ({'1 pass' if trpo else f'{cfg.ppo_epoch} epochs'} x "
+        f"{cfg.num_mini_batch} minibatches), {len(turns)} turns each from the card's state, card "
+        f"vs CPU port: targets max|diff| {target_diff:.3g}; the first {len(eager_equal)} turns "
+        f"graphed equal to eager bit for bit: {all(eager_equal)}; acceptance equal in "
+        f"{sum(r['accepted_equal'] for r in turns)} turns; max|diff| actor {worst('actor')}, "
+        f"critic {worst('critic')} (weights' tol {tol:.3g}), factor relative {worst('factor')}; "
+        f"each quantity's largest, median, the median of the card's spread from "
+        f"{AC_SPREAD_SAMPLES} {AC_PERTURBATION:g} perturbations, turns beyond their spread: "
+        + ", ".join(f"{k} {v['largest']:.3g} / {v['median']:.3g} / {v['spread_median']:.3g} / "
+                    f"{v['beyond_spread']}" for k, v in summary.items())
+        + f"; final factor mean {float(factor.mean()):.4g}; card {t_card:.2f}s, CPU "
+        f"{t_cpu:.2f}s")
+    if faults:
+        raise AssertionError(f"{tag}: the card's turns differ from the CPU port's: "
+                             + "; ".join(faults[:12]) + f" ({len(faults)} in all)")
+    return {"update": [1 if trpo else cfg.ppo_epoch, cfg.num_mini_batch],
+            "target_diff": target_diff, "graphed_equals_eager": eager_equal,
+            "summary": summary, "final_factor_mean": float(factor.mean()),
+            "card_update_s": t_card, "cpu_update_s": t_cpu}
+
+
+def phase12_actor_critic(torch, card, deterministic, spread):
+    """The actor-critic family on DCML at the recipe (the module docstring's
+    phase 12).  Returns ``{path: (attention_fwd, attention_bwd, ar_decode,
+    decode_step) launches}`` and the phase's readings."""
+    import math
+    import os
+    import shutil
+    import signal
+    import tempfile
+    from pathlib import Path
+
+    from mat_dcml_tpu_torch.config import RunConfig
+    from mat_dcml_tpu_torch.ops import ar_decode as ard
+    from mat_dcml_tpu_torch.ops import cuda_attention as ca
+    from mat_dcml_tpu_torch.ops import decode_step as dst
+    from mat_dcml_tpu_torch.training.ppo import PPOConfig
+    from mat_dcml_tpu_torch.training.resilience import EXIT_PREEMPTED
+    from mat_dcml_tpu_torch.training.runner import DCMLRunner
+
+    tag = "[phase 12]"
+    t_phase = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_ac_"))
+    paths, readings = {}, {"card": card}
+    none = (0, 0, 0, 0)
+
+    def launches():
+        return ca.launches, ca.bwd_launches, ard.launches, dst.launches
+
+    def zero():
+        ca.launches = ca.bwd_launches = ard.launches = dst.launches = 0
+
+    recipe = RunConfig()
+
+    def runner(name, algo, log=None, episodes=1, **kw):
+        run = RunConfig(seed=SEED, algorithm_name=algo, log_interval=1, run_dir=str(root / name),
+                        num_env_steps=episodes * recipe.episode_length * recipe.n_rollout_threads,
+                        **kw)
+        return DCMLRunner(run, PPOConfig(), log_fn=log or (lambda m: say(f"{tag} {name}: {m}")))
+
+    def final(r, state):
+        torch.cuda.synchronize()
+        return {**r.trainer.state_dict(state), "generator": r.generator.get_state()}
+
+    try:
+        # (a) one iteration each (happo: two, the uninterrupted run of (b)),
+        # no hand-written kernel on these paths
+        kept, happo_final = {}, None
+        for algo in AC_ALGOS:
+            episodes = 2 if algo == "happo" else 1
+            r = runner(algo, algo, episodes=episodes, save_interval=1)
+            _expect_device(r.device, algo)
+            pol = r.policy
+            train_state, rollout_state = r.setup()
+            torch.cuda.synchronize()
+            zero()
+            train_state, rollout_state = r.train_loop(episodes, train_state, rollout_state)
+            torch.cuda.synchronize()
+            paths[f"training_{algo}"] = launches()
+            _expect_launches(paths[f"training_{algo}"], none, algo)
+            if algo == "happo":     # a copy: the matched update below moves the live state
+                happo_final = copy.deepcopy(final(r, train_state))
+            if not all(math.isfinite(v) for rec in r.records for v in rec.values()):
+                raise AssertionError(f"{algo}: metrics not finite: {r.records}")
+            for rec in r.records:
+                it = rec["step_time_collect"] + rec["step_time_train"]
+                say(f"{tag} {algo} ({pol.n_stack} policies, obs {pol.obs_dim}, critic obs "
+                    f"{pol.cent_obs_dim}, {type(pol.space).__name__}, hidden "
+                    f"{pol.cfg.hidden_size}; E {r.run_cfg.n_rollout_threads}, T "
+                    f"{r.run_cfg.episode_length}, {r.trainer.cfg.ppo_epoch} x "
+                    f"{r.trainer.cfg.num_mini_batch}) iteration {rec['episode']} on {card}: "
+                    f"collect {rec['step_time_collect']:.3f}s, update "
+                    f"{rec['step_time_train']:.3f}s ({rec['step_time_train'] / it:.1%} of "
+                    f"{it:.3f}s); launches fwd/bwd/ar_decode/decode_step "
+                    f"{paths[f'training_{algo}']}")
+                say(f"{tag} {algo} record: " + ", ".join(
+                    f"{k} {rec[k]:.6g}" for k in ("average_step_rewards", "value_loss",
+                                                  "policy_loss", "dist_entropy", "grad_norm",
+                                                  "factor_mean", "kl", "accepted") if k in rec))
+            readings[algo] = [{"collect_s": rec["step_time_collect"],
+                               "update_s": rec["step_time_train"],
+                               "iteration_s": rec["step_time_collect"] + rec["step_time_train"]}
+                              for rec in r.records]
+            if algo in AC_MATCHED:
+                zero()
+                match = _match_cpu_ac_update if algo == "ppo" else _match_cpu_turns
+                readings[f"{algo}_vs_cpu"] = match(torch, r, train_state, rollout_state,
+                                                   f"{tag} {algo}")
+                torch.cuda.synchronize()
+                _expect_launches(launches(), none, f"{algo}'s matched update")
+            if algo in AC_EVALUATED:
+                kept[algo] = r
+            say(f"{tag} [time] {algo} done at {time.perf_counter() - t_phase:.1f}s of the phase")
+
+        # (b) happo: (a)'s 2 uninterrupted episodes against 1, SIGTERM, exit
+        # 75 and resume="auto" for the 2nd
+        def sigterm_after_0(m):
+            say(f"{tag} happo_stop: {m}")
+            if m.startswith("ep 0 "):
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        torch.cuda.synchronize()
+        zero()
+        stopped = runner("happo_stop", "happo", log=sigterm_after_0, episodes=2,
+                         save_interval=1)
+        try:
+            stopped.train_loop()
+            raise AssertionError("happo: the run did not stop on SIGTERM")
+        except SystemExit as e:
+            if e.code != EXIT_PREEMPTED:
+                raise AssertionError(f"happo: exit code {e.code}, expected {EXIT_PREEMPTED}")
+        resumed = runner("happo_stop", "happo", episodes=2, save_interval=1, resume="auto")
+        res_state, res_rollout = resumed.setup()
+        if resumed.start_episode != 1:
+            raise AssertionError(f"happo: resumed at episode {resumed.start_episode}")
+        res_state, _ = resumed.train_loop(train_state=res_state, rollout_state=res_rollout)
+        torch.cuda.synchronize()
+        paths["resume_happo"] = launches()
+        _expect_launches(paths["resume_happo"], none, "happo resume")
+        equal, diff = _state_diff(torch, final(resumed, res_state), happo_final, "happo resume")
+        if deterministic and not equal:
+            raise AssertionError(f"happo: the resumed run differs from the uninterrupted one by "
+                                 f"{diff:.3g} on a deterministic card")
+        if not deterministic and not diff <= spread:
+            raise AssertionError(f"happo: resumed run differs by {diff:.3g} > phase 9 (a)'s "
+                                 f"spread {spread:.3g}")
+        say(f"{tag} happo: 1 episode, SIGTERM, emergency checkpoint, exit {EXIT_PREEMPTED}, "
+            f"resume='auto' at episode {resumed.start_episode}: equal to the uninterrupted "
+            f"2-episode run bit for bit: {equal} (max |diff| {diff:.3g}; weights, both Adam "
+            f"states of all {resumed.policy.n_stack} agents, ValueNorms, generator)")
+        readings["happo_resume_equal"] = bool(equal)
+        say(f"{tag} [time] (b) done at {time.perf_counter() - t_phase:.1f}s of the phase")
+
+        # (c) evaluation, 100 deterministic steps
+        for algo, r in kept.items():
+            zero()
+            t0 = time.perf_counter()
+            info = r.evaluate(n_steps=EVAL_STEPS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            paths[f"eval_{algo}"] = launches()
+            _expect_launches(paths[f"eval_{algo}"], none, f"{algo} evaluation")
+            if not all(math.isfinite(v) for v in info.values()):
+                raise AssertionError(f"{algo} evaluation not finite: {info}")
+            say(f"{tag} {algo} DCMLRunner.evaluate, {EVAL_STEPS} steps on {card}: {wall:.2f}s, "
+                f"{info['eval_inference_sec_per_call'] * 1e3:.3f} ms a policy call; "
+                + ", ".join(f"{k} {v:.6g}" for k, v in info.items()))
+            readings[f"eval_{algo}"] = {"wall_s": wall, **info}
+        readings["seconds"] = time.perf_counter() - t_phase
+        return paths, readings
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(BUDGET_S, exit=True)
     t_start = time.perf_counter()
@@ -2916,6 +3418,9 @@ def main() -> int:
                                              ckpt_readings["spread"])
     smac_readings["kernel_errors"] = {" ".join(k): v for k, v in smac_errs.items()}
     say(f"[time] SMAC phase done at {time.perf_counter() - t_start:.1f}s")
+    ac_paths, ac_readings = phase12_actor_critic(torch, card, ckpt_readings["deterministic"],
+                                                 ckpt_readings["spread"])
+    say(f"[time] actor-critic phase done at {time.perf_counter() - t_start:.1f}s")
 
     smac_labels = ("8m_", "multi_")
 
@@ -2946,7 +3451,8 @@ def main() -> int:
         return {**paths, **{name: n[k] for name, n in paths16.items()},
                 **{name: n[k] for name, n in ckpt_paths.items()},
                 **{name: n[k] for name, n in mo_paths.items()},
-                **{name: n[k] for name, n in smac_paths.items()}}
+                **{name: n[k] for name, n in smac_paths.items()},
+                **{name: n[k] for name, n in ac_paths.items()}}
 
     fwd_paths = with16({"serving_cached": serve["cached"][0], "serving_scan": serve["scan"][0],
                         "training_cached": train_fwd, "training_scan": scan_fwd,
@@ -3078,6 +3584,7 @@ def main() -> int:
     say(json.dumps({"checkpoint_phase": ckpt_readings}))
     say(json.dumps({"mat_family_phase": mo_readings}))
     say(json.dumps({"smac_phase": smac_readings}))
+    say(json.dumps({"actor_critic_phase": ac_readings}))
     say(f"[done] {time.perf_counter() - t_start:.1f}s wall")
     say(card)   # as nvidia-smi gives it: name, power limit
     say(json.dumps({"kernels": [fwd_kernel, bwd_kernel, ar_kernel, step_kernel, probe_kernel]}))

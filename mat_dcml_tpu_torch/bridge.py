@@ -15,6 +15,14 @@ the mapping is mechanical:
   only these layers' parameters carry in the port.
 
 Both directions copy values exactly.
+
+The actor-critic family's weights (``models/actor_critic.py``) keep flax's
+own layout: :func:`ac_params_from_jax` flattens a ``{"actor": {"params":
+...}, "critic": {"params": ...}}`` tree into ``{"actor/base/.../kernel":
+array}`` (a Dense ``kernel`` stays ``(in, out)``), which
+``ActorCriticPolicy.load_tree`` lays into its flat tensors; IPPO's and
+HAPPO's trees carry a leading agent axis on every leaf, the policy's stack
+axis.  :func:`ac_params_to_jax` is the inverse.
 """
 
 from __future__ import annotations
@@ -91,3 +99,34 @@ def params_to_jax(state_dict) -> dict:
             node = node.setdefault(name, {})
         node[last] = np.ascontiguousarray(arr)
     return {"params": tree}
+
+
+def ac_params_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """A JAX actor-critic parameter tree (numpy leaves) -> ``{"actor/...",
+    "critic/...": tensor}`` for ``ActorCriticPolicy.load_tree``."""
+    out = {}
+    for group in ("actor", "critic"):
+        sub = tree[group]
+        if "params" in sub:
+            sub = sub["params"]
+        for path, leaf in _flatten(sub, (group,)):
+            out["/".join(path)] = torch.from_numpy(np.array(leaf, dtype=np.float32))
+    return out
+
+
+def ac_params_to_jax(leaves, stacked: bool = True) -> dict:
+    """``{"actor/...": (S, ...) tensor}`` (``ActorCriticPolicy.tree()``) ->
+    the JAX tree ``{"actor": {"params": ...}, "critic": {"params": ...}}``
+    of numpy arrays; without ``stacked`` the stack axis (of size 1) is
+    dropped, as a shared policy's tree has none."""
+    tree: dict = {}
+    for key, val in leaves.items():
+        arr = val.detach().cpu().numpy()
+        if not stacked:
+            arr = arr[0]
+        group, *names = key.split("/")
+        node = tree.setdefault(group, {}).setdefault("params", {})
+        for name in names[:-1]:
+            node = node.setdefault(name, {})
+        node[names[-1]] = np.ascontiguousarray(arr)
+    return tree

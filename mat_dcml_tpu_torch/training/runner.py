@@ -27,7 +27,11 @@ JAX runner:
 builds it (``MAT_DCML_ALGOS``: ``mat``; ``mat_dec``, MAT-Dec with one MLP
 actor for all agents; ``momat``, MO-MAT's two-objective critic on the
 (completion time, payment) channels; ``dmomat``, MO-MAT with per-episode
-preference weights appended to obs and share_obs), or the ``random``
+preference weights appended to obs and share_obs), the feed-forward
+actor-critic family (``AC_DCML_ALGOS``, :func:`build_ac_components`:
+``ppo``, the centralised PPO over the joint action; ``mappo``, one shared
+policy; ``ippo``, one policy an agent with a local value; ``happo`` and
+``hatrpo``, one policy an agent trained in turn), or the ``random``
 baseline, and evaluates; ``training/mujoco_runner.py::MujocoRunner`` trains
 ``mat`` on multi-agent MuJoCo lite. MO runs add
 ``average_step_objective_<i>`` to each record (``base_runner.py:900-914``);
@@ -54,9 +58,20 @@ import torch
 from mat_dcml_tpu_torch.config import RunConfig
 from mat_dcml_tpu_torch.device import resolve_device, synchronize
 from mat_dcml_tpu_torch.envs.dcml.env import DCMLEnv, DCMLEnvConfig
+from mat_dcml_tpu_torch.envs.dcml.joint import JointDCMLEnv
+from mat_dcml_tpu_torch.envs.dcml.per_agent import PerAgentDCMLEnv
+from mat_dcml_tpu_torch.models.actor_critic import ACConfig, ActorCriticPolicy
 from mat_dcml_tpu_torch.models.mat import SEMI_DISCRETE, TRUNK_DTYPES, MATConfig
 from mat_dcml_tpu_torch.models.policy import TransformerPolicy
+from mat_dcml_tpu_torch.training.ac_rollout import ACRolloutCollector, ACRolloutState
 from mat_dcml_tpu_torch.training.checkpoint import CheckpointManager
+from mat_dcml_tpu_torch.training.happo import (
+    HAPPORolloutCollector,
+    HAPPOTrainer,
+    HATRPOTrainer,
+)
+from mat_dcml_tpu_torch.training.ippo import IPPORolloutCollector, IPPOTrainer
+from mat_dcml_tpu_torch.training.mappo import MAPPOConfig, MAPPOTrainer
 from mat_dcml_tpu_torch.training.ppo import MATTrainer, PPOConfig
 from mat_dcml_tpu_torch.training.resilience import (
     GracefulStopHandler,
@@ -68,11 +83,18 @@ from mat_dcml_tpu_torch.training.rollout import RolloutCollector
 
 RESUME_MODES = ("strict", "auto")
 MAT_DCML_ALGOS = ("mat", "mat_dec", "momat", "dmomat")
+AC_DCML_ALGOS = ("ppo", "mappo", "ippo", "happo", "hatrpo")
+RECURRENT_AC_ALGOS = ("rmappo", "rhappo", "rhatrpo")
 
 
 def check_run(run: RunConfig, algorithms=("mat",)) -> None:
     """The run settings the port's trainers do not take: raise on them.
     ``algorithms`` are the ones the caller trains."""
+    if run.algorithm_name in RECURRENT_AC_ALGOS:
+        raise NotImplementedError(
+            f"algorithm_name={run.algorithm_name!r}: the recurrent actor-critic variants "
+            "(GRULayer, the chunked recurrent trainer) are not ported yet; the feed-forward "
+            f"{AC_DCML_ALGOS} are (ROADMAP.md queue 1, item 9)")
     if run.algorithm_name not in algorithms:
         raise NotImplementedError(
             f"algorithm_name={run.algorithm_name!r} is not ported yet here; this trains "
@@ -115,6 +137,53 @@ def build_mat_policy(run: RunConfig, env: DCMLEnv, device=None,
     return TransformerPolicy(cfg, decode_mode=run.decode_mode, device=device, generator=generator)
 
 
+def ac_config_kwargs(ppo: PPOConfig) -> dict:
+    """The ``MAPPOConfig`` fields a run's ``PPOConfig`` sets
+    (``base_runner.py:216-226``)."""
+    return dict(lr=ppo.lr, ppo_epoch=ppo.ppo_epoch,
+                num_mini_batch=ppo.num_mini_batch, clip_param=ppo.clip_param,
+                entropy_coef=ppo.entropy_coef, value_loss_coef=ppo.value_loss_coef,
+                max_grad_norm=ppo.max_grad_norm, gamma=ppo.gamma, gae_lambda=ppo.gae_lambda)
+
+
+def build_ac_components(run: RunConfig, ppo: PPOConfig, env: DCMLEnv, device=None,
+                        generator: Optional[torch.Generator] = None):
+    """``(policy, trainer, collector)`` of ``run.algorithm_name`` in the
+    actor-critic family, as the JAX runner builds them
+    (``mat_dcml_tpu/training/runner.py:140-190``): ``ppo`` over the joint
+    view (one agent, the mixed action space, the product importance
+    weight); the others over the per-agent view (``MixedRole``), ``mappo``
+    with one shared policy, ``ippo`` one an agent with the critic on local
+    obs, ``happo`` and ``hatrpo`` one an agent with the centralised critic.
+    The weights are drawn from ``generator`` (a CPU generator)."""
+    check_run(run, AC_DCML_ALGOS)
+    algo = run.algorithm_name
+    kw = ac_config_kwargs(ppo)
+    ac = ACConfig(hidden_size=run.n_embd)
+    T = run.episode_length
+    if algo == "ppo":
+        wrapped = JointDCMLEnv(env)
+        policy = ActorCriticPolicy(ac, wrapped.obs_dim, wrapped.share_obs_dim,
+                                   wrapped.action_space, device=device, generator=generator)
+        return (policy, MAPPOTrainer(policy, MAPPOConfig(importance_prod=True, **kw)),
+                ACRolloutCollector(wrapped, policy, T))
+    wrapped = PerAgentDCMLEnv(env)
+    A = wrapped.n_agents
+    policy = ActorCriticPolicy(
+        ac, wrapped.obs_dim, wrapped.obs_dim if algo == "ippo" else wrapped.share_obs_dim,
+        wrapped.action_space, n_stack=1 if algo == "mappo" else A, device=device,
+        generator=generator)
+    if algo == "mappo":
+        return (policy, MAPPOTrainer(policy, MAPPOConfig(**kw)),
+                ACRolloutCollector(wrapped, policy, T))
+    if algo == "ippo":
+        return (policy, IPPOTrainer(policy, MAPPOConfig(**kw), n_agents=A),
+                IPPORolloutCollector(wrapped, policy, T, use_local_value=True))
+    trainer_cls = HATRPOTrainer if algo == "hatrpo" else HAPPOTrainer
+    return (policy, trainer_cls(policy, MAPPOConfig(**kw), n_agents=A),
+            HAPPORolloutCollector(wrapped, policy, T))
+
+
 def restore_mat_policy(run: RunConfig, env: DCMLEnv, model_dir, step: Optional[int] = None,
                        device=None, build=build_mat_policy):
     """``(policy, step)``: the MAT built by ``build(run, env, device=...)``
@@ -147,8 +216,7 @@ class EpisodicRunner:
         self.env = self.make_env()
         self.policy = self.make_policy(torch.Generator().manual_seed(run.seed))
         self.trainer = self.make_trainer(ppo)
-        self.collector = RolloutCollector(self.env, self.policy, run.episode_length,
-                                          dynamic_coefficients=run.algorithm_name == "dmomat")
+        self.collector = self.make_collector()
         self.run_dir = (Path(run.run_dir) / run.env_name / run.scenario / run.algorithm_name
                         / run.experiment_name)
         self.metrics_path = self.run_dir / "metrics.jsonl"
@@ -167,6 +235,11 @@ class EpisodicRunner:
 
     def make_trainer(self, ppo: PPOConfig):
         return MATTrainer(self.policy, ppo, total_updates=self.run_cfg.episodes)
+
+    def make_collector(self):
+        run = self.run_cfg
+        return RolloutCollector(self.env, self.policy, run.episode_length,
+                                dynamic_coefficients=run.algorithm_name == "dmomat")
 
     def evaluate(self, n_steps: int = 100, seed: int = 0, stride: Optional[int] = None) -> dict:
         raise NotImplementedError(f"{type(self).__name__} has no evaluation yet "
@@ -289,7 +362,9 @@ class EpisodicRunner:
                         "total_steps": total_steps,
                         "fps": steps_here / max(time.time() - start, 1e-9),
                         "average_step_rewards": stats["step_reward_mean"],
-                        **{k: float(v) for k, v in metrics._asdict().items()},
+                        # per-agent metrics (IPPO) averaged, as JAX's record does
+                        **{k: float(v.sum() if k == "nonfinite_grads" else v.float().mean())
+                           for k, v in metrics._asdict().items()},
                         "step_time_collect": collect_s,
                         "step_time_train": train_s,
                     }
@@ -331,20 +406,30 @@ class EpisodicRunner:
 
 class DCMLRunner(EpisodicRunner):
     """The DCML recipe: the worker-selection env and the semi-discrete MAT
-    family (``MAT_DCML_ALGOS``), or the random baseline
+    family (``MAT_DCML_ALGOS``), the actor-critic family
+    (``AC_DCML_ALGOS``), or the random baseline
     (``algorithm_name="random"``)."""
 
-    ALGORITHMS = MAT_DCML_ALGOS + ("random",)
+    ALGORITHMS = MAT_DCML_ALGOS + AC_DCML_ALGOS + ("random",)
 
     def __init__(self, run: RunConfig, ppo: PPOConfig, log_fn=print,
                  env_config: DCMLEnvConfig = DCMLEnvConfig()):
         self.env_config = env_config
+        self.ppo_cfg = ppo
         super().__init__(run, ppo, log_fn)
 
     def make_env(self) -> DCMLEnv:
         return DCMLEnv(self.env_config, device=self.device)
 
+    @property
+    def is_ac(self) -> bool:
+        return self.run_cfg.algorithm_name in AC_DCML_ALGOS
+
     def make_policy(self, generator: torch.Generator):
+        if self.is_ac:
+            self.policy, self._ac_trainer, self._ac_collector = build_ac_components(
+                self.run_cfg, self.ppo_cfg, self.env, self.device, generator)
+            return self.policy
         if self.run_cfg.algorithm_name == "random":
             from mat_dcml_tpu_torch.training.random_baseline import RandomPolicy
 
@@ -353,11 +438,16 @@ class DCMLRunner(EpisodicRunner):
         return build_mat_policy(self.run_cfg, self.env, device=self.device, generator=generator)
 
     def make_trainer(self, ppo: PPOConfig):
+        if self.is_ac:
+            return self._ac_trainer
         if self.run_cfg.algorithm_name == "random":
             from mat_dcml_tpu_torch.training.random_baseline import RandomTrainer
 
             return RandomTrainer(self.policy)
         return super().make_trainer(ppo)
+
+    def make_collector(self):
+        return self._ac_collector if self.is_ac else super().make_collector()
 
     # ----------------------------------------------------------------- eval
 
@@ -374,20 +464,48 @@ class DCMLRunner(EpisodicRunner):
         from a generator seeded ``seed + 13``, apart from the run's; a
         ``dmomat`` policy reads obs and share_obs widened by the preference
         weights drawn at the reset, fixed for the whole evaluation
-        (``mat_dcml_tpu/training/runner.py:240-246``)."""
+        (``mat_dcml_tpu/training/runner.py:240-246``).  The actor-critic
+        family acts deterministically through its collector on its view of
+        the env (``runner.py:275-290``); it has no stride decode."""
         E = self.run_cfg.n_rollout_threads
         gen = torch.Generator(device=self.device).manual_seed(seed + 13)
-        env, col = self.env, self.collector
+        col = self.collector
+        env = col.env
         st = col.init_state(E, generator=gen)
-        env_states, coefs = st.env_states, st.objective_coefficients
 
-        def act(st):
-            with torch.no_grad():
-                if stride is None:
-                    return self.policy.get_actions(st.share_obs, st.obs, st.available_actions,
-                                                   deterministic=True).action
-                return self.policy.act_stride(st.share_obs, st.obs, st.available_actions,
-                                              stride=stride).action
+        if self.is_ac:
+            if stride is not None:
+                raise ValueError("stride is the MAT decode; the actor-critic family has none")
+
+            def act(st):
+                with torch.no_grad():
+                    return col.apply(st, deterministic=True)
+
+            def advance(st, out, ts):
+                mask = torch.where(ts.done.all(dim=1)[:, None, None], 0.0, 1.0).expand_as(st.mask)
+                return ACRolloutState(st.env_states, ts.obs, ts.share_obs, ts.available_actions,
+                                      mask, out.actor_h, out.critic_h, st.episode_acc)
+
+            def action_of(out):
+                return out.action
+        else:
+            coefs = st.objective_coefficients
+
+            def act(st):
+                with torch.no_grad():
+                    if stride is None:
+                        return self.policy.get_actions(st.share_obs, st.obs, st.available_actions,
+                                                       deterministic=True).action
+                    return self.policy.act_stride(st.share_obs, st.obs, st.available_actions,
+                                                  stride=stride).action
+
+            def advance(st, out, ts):
+                return st._replace(obs=col.augment_share_obs(ts.obs, coefs),
+                                   share_obs=col.augment_share_obs(ts.share_obs, coefs),
+                                   available_actions=ts.available_actions)
+
+            def action_of(out):
+                return out
 
         act(st)   # warm-up: the first call on the card loads the kernels
         infer_time = 0.0
@@ -395,13 +513,11 @@ class DCMLRunner(EpisodicRunner):
         for _ in range(n_steps):
             synchronize(self.device)   # the env step queued before is not the call's
             t0 = time.perf_counter()
-            action = act(st)
+            out = act(st)
             synchronize(self.device)
             infer_time += time.perf_counter() - t0
-            env_states, ts = env.step(env_states, action, env.draw_step(E, gen))
-            st = st._replace(obs=col.augment_share_obs(ts.obs, coefs),
-                             share_obs=col.augment_share_obs(ts.share_obs, coefs),
-                             available_actions=ts.available_actions)
+            env_states, ts = env.step(st.env_states, action_of(out), env.draw_step(E, gen))
+            st = advance(st, out, ts)._replace(env_states=env_states)
             per_step.append(torch.stack([ts.reward.sum(-1).mean(-1), ts.delay, ts.payment,
                                          ts.done.all(dim=1).float()]))
         r, d, p, done = torch.stack(per_step).cpu().numpy().transpose(1, 0, 2)  # (4, n_steps, E)

@@ -272,8 +272,8 @@ def test_random_runner_trains_and_saves_nothing(tmp_path):
     runner.train_loop()
     assert [r["episode"] for r in runner.records] == [0, 1]
     assert runner.ckpt.all_steps() == []
-    with pytest.raises(NotImplementedError, match="item 9"):
-        DCMLRunner(RunConfig(device="cpu", algorithm_name="mappo"), ppo)
+    with pytest.raises(NotImplementedError, match="item 9"):   # recurrent: not ported yet
+        DCMLRunner(RunConfig(device="cpu", algorithm_name="rmappo"), ppo)
 
 
 @pytest.mark.parametrize("flags", [["--algorithm_name", "random"], ["--use_eval", "true"]],

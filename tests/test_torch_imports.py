@@ -40,7 +40,13 @@ def test_importing_the_port_loads_no_jax():
             "mat_dcml_tpu_torch.probes.cache_layout", "mat_dcml_tpu_torch.envs.smac.maps",
             "mat_dcml_tpu_torch.envs.smac.smaclite", "mat_dcml_tpu_torch.envs.smac.translation",
             "mat_dcml_tpu_torch.envs.permute", "mat_dcml_tpu_torch.training.smac_runner",
-            "mat_dcml_tpu_torch.train_smac", "mat_dcml_tpu_torch.train_smac_multi"} <= set(mods)
+            "mat_dcml_tpu_torch.train_smac", "mat_dcml_tpu_torch.train_smac_multi",
+            "mat_dcml_tpu_torch.envs.spaces", "mat_dcml_tpu_torch.envs.dcml.joint",
+            "mat_dcml_tpu_torch.envs.dcml.per_agent", "mat_dcml_tpu_torch.models.bases",
+            "mat_dcml_tpu_torch.models.act_layer", "mat_dcml_tpu_torch.models.actor_critic",
+            "mat_dcml_tpu_torch.ops.popart", "mat_dcml_tpu_torch.training.ac_rollout",
+            "mat_dcml_tpu_torch.training.mappo", "mat_dcml_tpu_torch.training.ippo",
+            "mat_dcml_tpu_torch.training.happo"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
